@@ -1,0 +1,222 @@
+"""Fused extract: murmur3 + threshold prefilter + per-column selection.
+
+The counterpart of ``finch_tpu/ops/pallas_extract.py``: it replaces the
+Pallas TPU kernel ``_extract_kernel`` in its unweighted form
+(``pallas_extract.py:133``, reached through ``_extract_candidates``). The
+kernel itself is hand-written CUDA for Hopper (``csrc/extract.cu``), built
+with ``nvcc`` at first use into ``csrc/_build/`` and called through a plain
+C interface with ctypes. Beside it, ``extract_candidates_plain`` computes
+the same function with PyTorch ops; the wrapper takes it only for CPU
+tensors, and for CUDA tensors launches the kernel or raises.
+
+Contract (the TPU kernel's, pinned by tests/test_torch_extract.py). Lanes
+are viewed as (nchunks, COLH=32, CHUNK_W=2048); a column is one of the
+CHUNK_W positions of a chunk, 32 lanes tall.
+
+* per lane: v = (hi << 32) | lo is the composite (packed << 1) | is_rc;
+  a lane with both planes 0xFFFFFFFF is padding. The hash planes hold the
+  murmur3 of packed = v >> 1 for every lane; a lane survives iff it is not
+  padding and hash <= thresh (u64 order).
+* per (chunk, column): the slab holds v + 1 of the up to ROWS_OUT=8
+  smallest survivors, ordered by (v, row) with the 5-bit row index
+  appended so that equal k-mers stay distinct lanes and counts stay exact;
+  slab rows are written descending (row 7 holds the smallest), empty rows
+  are u64::MAX. covf = 1 if any chunk-column kept more than 8.
+* per column: cand holds the ACC_H=32 smallest of that column's slab
+  entries over every chunk, ascending down the rows, u64::MAX padded;
+  aovf = 1 if a column's real slab entries exceed 32.
+
+Outputs: cand int64[32*2048], slab int64[b/4], hash_lo/hash_hi int32[b]
+(u32 bits), covf/aovf int32 scalars. All u64 values are int64 bit patterns
+(``finch_tpu_torch.u64``).
+
+What bounds the kernel on the H100, and what the design does about it: the
+work per lane is a 64-bit integer hash (about a dozen 64x64-bit multiplies,
+each several INT32 instructions) plus the ASCII word assembly, against
+8 bytes read and 8 bytes of hash planes written. At its fewest
+instructions (a byte permute assembles four ASCII bases) the function is
+just memory-bound at k=21; this kernel issues about twice that many
+integer instructions (it assembles the ASCII one base at a time), so the
+INT32 issue rate is what limits it (PERF.md gives both bounds at the main
+path's 4M-lane batch). The design keeps every intermediate in registers: one
+thread owns one (chunk, column), walks its 32 rows with loads and hash
+stores coalesced along CHUNK_W, and keeps its 8 smallest survivors in a
+register insertion list, so nothing but the slab and hash planes touches
+device memory. The cross-chunk accumulator cannot live in one block's
+scratch across a sequential grid as on the TPU (GPU blocks run in no
+order), so a second launch walks each column's nchunks*8 slab entries and
+keeps the 32 smallest in registers. Tuning (more threads per column, fewer
+integer instructions in the word assembly) is later work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+from finch_tpu_torch import u64
+from finch_tpu_torch.errors import FinchMessageError
+from finch_tpu_torch.ops.murmur3 import hash_packed_kmers
+
+COLH = 32
+ROWS_OUT = 8
+ROW_BITS = (COLH - 1).bit_length()
+CHUNK_W = 2048
+ACC_H = 32
+CHUNK = COLH * CHUNK_W
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "extract.cu")
+_BUILD = os.path.join(os.path.dirname(_HERE), "csrc", "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def supports(k: int, b: int) -> bool:
+    """Kernel preconditions (``pallas_extract.supports``): the row-index
+    encoding fits strictly below u64::MAX (k <= 28) and whole chunks."""
+    return 2 * k + 1 + ROW_BITS < 64 and b % CHUNK == 0 and b >= CHUNK
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise FinchMessageError("nvcc not found: the CUDA toolkit is needed "
+                                "to build csrc/extract.cu")
+    return found
+
+
+def build() -> tuple[str, str]:
+    """Compile csrc/extract.cu into csrc/_build (keyed by a content hash).
+
+    Returns (path of the shared library, compiler output). The output holds
+    ptxas' registers, shared memory and spills per kernel; it is empty when
+    the cached library is reused."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(_BUILD, exist_ok=True)
+    so_path = os.path.join(_BUILD, f"libextract_{digest}.so")
+    if os.path.exists(so_path):
+        return so_path, ""
+    tmp = so_path + f".tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise FinchMessageError(
+            f"nvcc failed on {_SRC}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so_path)
+    return so_path, proc.stdout + proc.stderr
+
+
+def _cuda_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                lib = ctypes.CDLL(build()[0])
+                p = ctypes.c_void_p
+                lib.finch_extract.restype = ctypes.c_int
+                lib.finch_extract.argtypes = [
+                    p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_uint64, p]
+                _lib = lib
+    return _lib
+
+
+def _check(vlo, vhi, thresh, k: int) -> None:
+    if vlo.dtype != torch.int32 or vhi.dtype != torch.int32:
+        raise FinchMessageError("extract planes must be int32 (u32 bits)")
+    if vlo.dim() != 1 or vlo.shape != vhi.shape:
+        raise FinchMessageError("extract planes must be 1-D and equal length")
+    if not (vlo.is_contiguous() and vhi.is_contiguous()):
+        raise FinchMessageError("extract planes must be contiguous")
+    if thresh.dtype != torch.int64 or thresh.numel() != 1:
+        raise FinchMessageError("thresh must be one int64 (u64 bits)")
+    if not (vlo.device == vhi.device == thresh.device):
+        raise FinchMessageError("extract operands must share one device")
+    if not supports(k, vlo.shape[0]):
+        raise FinchMessageError(
+            f"extract kernel needs k <= 28 and a multiple of {CHUNK} lanes "
+            f"(k={k}, b={vlo.shape[0]})")
+
+
+def extract_candidates(vlo: torch.Tensor, vhi: torch.Tensor,
+                       thresh: torch.Tensor, *, k: int, seed: int):
+    """Run the fused extract over b = vlo.numel() lanes (see module doc).
+
+    Returns (cand, slab, hash_lo, hash_hi, covf, aovf). CPU tensors take
+    the plain PyTorch version; CUDA tensors launch the kernel."""
+    _check(vlo, vhi, thresh, k)
+    if vlo.device.type == "cpu":
+        return extract_candidates_plain(vlo, vhi, thresh, k=k, seed=seed)
+    if vlo.device.type != "cuda":
+        raise FinchMessageError(
+            f"extract runs on cuda or cpu tensors, not {vlo.device}")
+    b = vlo.shape[0]
+    nchunks = b // CHUNK
+    dev = vlo.device
+    cand = torch.empty(ACC_H * CHUNK_W, dtype=torch.int64, device=dev)
+    slab = torch.empty(nchunks * ROWS_OUT * CHUNK_W, dtype=torch.int64,
+                       device=dev)
+    h_lo = torch.empty(b, dtype=torch.int32, device=dev)
+    h_hi = torch.empty(b, dtype=torch.int32, device=dev)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)
+    thresh = thresh.reshape(1).contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _cuda_lib().finch_extract(
+            vlo.data_ptr(), vhi.data_ptr(), thresh.data_ptr(),
+            cand.data_ptr(), slab.data_ptr(), h_lo.data_ptr(),
+            h_hi.data_ptr(), flags.data_ptr(), nchunks, k,
+            u64.to_u64(seed), stream)
+    if err != 0:
+        raise FinchMessageError(f"extract kernel launch failed: CUDA error "
+                                f"{err}")
+    extract_candidates.launches += 1
+    return cand, slab, h_lo, h_hi, flags[0], flags[1]
+
+
+extract_candidates.launches = 0
+
+
+def extract_candidates_plain(vlo: torch.Tensor, vhi: torch.Tensor,
+                             thresh: torch.Tensor, *, k: int, seed: int):
+    """The same function as the kernel, written with PyTorch ops on int64
+    lanes (a sort stands in for the kernel's insertion lists)."""
+    b = vlo.shape[0]
+    nch = b // CHUNK
+    v = u64.join(vlo, vhi)
+    pad = (vlo == -1) & (vhi == -1)
+    h = hash_packed_kmers(u64.shr(v, 1), k=k, seed=seed)
+    keep = ~pad & u64.le(h, thresh.reshape(()))
+    row = torch.arange(COLH, dtype=torch.int64, device=v.device)
+    e = torch.where(keep.view(nch, COLH, CHUNK_W),
+                    (v.view(nch, COLH, CHUNK_W) << ROW_BITS)
+                    | row.view(1, COLH, 1), u64.MAX)
+    e, _ = u64.sort(e, dim=1)
+    covf = (e[:, ROWS_OUT, :] != u64.MAX).any()
+    top = e[:, :ROWS_OUT, :]
+    slab = torch.where(top != u64.MAX, u64.shr(top, ROW_BITS) + 1,
+                       u64.MAX).flip(1)
+    cols, _ = u64.sort(slab.permute(2, 0, 1).reshape(CHUNK_W, -1), dim=1)
+    aovf = (cols[:, ACC_H:] != u64.MAX).any()
+    if cols.shape[1] < ACC_H:
+        cols = torch.cat([cols, torch.full(
+            (CHUNK_W, ACC_H - cols.shape[1]), u64.MAX, dtype=torch.int64,
+            device=v.device)], 1)
+    cand = cols[:, :ACC_H].t().reshape(-1).contiguous()
+    h_lo, h_hi = u64.split(h)
+    return (cand, slab.reshape(-1), h_lo, h_hi, covf.to(torch.int32),
+            aovf.to(torch.int32))
