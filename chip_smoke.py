@@ -4,26 +4,42 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout on a machine with one CUDA card. It builds
-every kernel of the port's main path from the sources in the checkout,
-holds each kernel against its plain PyTorch version at the main path's
-shapes (exact equality: the outputs are integers), reproduces the frozen
-goldens through the port's CLI on the card, and sketches a simulated
-bacterial-isolate sequencing run (a 5 Mbp random genome, 150 bp reads at
-30x coverage, 0.5% substitutions, half the reads reverse-complemented:
-about 1M reads and 130M 21-mers) at the CLI defaults three ways: the auto
-backend on the card (host fold migrating to the device), the torch backend
-on the card (a cold start on the device) and the native host fold, an
-independent implementation. The three .sk byte strings must be identical.
+every kernel of the port from the sources in the checkout (one nvcc per
+source, all at once), holds each kernel against its plain PyTorch version
+at the engines' 2M-lane batch and at 4M (exact equality: the outputs are
+integers), reproduces the frozen goldens through the port's CLI on the
+card, and then drives two paths:
 
-Every phase raises on failure and the script exits non-zero. Without a
-card, or without the finch_tpu_torch package beside it, it fails before
-printing any result. The last lines are the card (nvidia-smi), one JSON
-line with each kernel's numbers, and `{"ok": true, "device": {...}}`.
+* [main] sketches a simulated bacterial-isolate sequencing run (a 5 Mbp
+  random genome, 150 bp reads at 30x coverage, 0.5% substitutions, half
+  the reads reverse-complemented: about 1M reads and 130M 21-mers) at the
+  CLI defaults three ways: the auto backend on the card (host fold
+  migrating to the device), the torch backend on the card (a cold start on
+  the device) and the native host fold, an independent implementation.
+  The three .sk byte strings must be identical. Then an A/B of the torch
+  backend against the A/B/C-only configuration (sketch_step
+  absorb=False, dedup_tier=False), five pairs in turns.
+* [dup] folds the two duplicate-burst streams of bench.py, 64 batches of
+  2M lanes each, from a cold state and from a warmed one, at the
+  CLI-default sketch parameters: a 64x tile of 32768 random composites
+  (copies share a column) and the same multiset permuted across lanes.
+  TorchEngine on the card, in the default configuration and in the
+  A/B/C-only one (five pairs in turns), and NativeEngine must give
+  identical sketches.
+
+Each kernel's launch counter is zeroed just before each run and read just
+after, and must equal the steps that by the tier switch's rules launch
+that kernel. Every phase raises on failure and the script exits non-zero.
+Without a card, or without the finch_tpu_torch package beside it, it fails
+before printing any result. The last lines are the card (nvidia-smi), one
+JSON line with each kernel's numbers, and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import shutil
@@ -93,27 +109,75 @@ def extract_bytes(b: int) -> int:
     return 8 * b + 8 * b + (b // 4) * 8 + 32 * 2048 * 8 + 8 + 8
 
 
+def extract_weighted_int_ops(k: int, b: int, kept: int, slab_real: int,
+                             heads: int) -> int:
+    """The weighted extract's fewest INT32 instructions: the unweighted
+    function's (extract_int_ops; its one compare per real slab entry also
+    finds the entry's equal, since the distinct values are kept sorted)
+    plus 4 per real cand entry (the (count - 1) << (2k+2) fold: a 64-bit
+    shift in halves and an add with carry). Bytes as extract_bytes."""
+    return extract_int_ops(k, b, kept, slab_real) + 4 * heads
+
+
+def dedup_int_ops(b: int, kept: int, heads: int) -> int:
+    """Tier D's fewest INT32 instructions, counted as extract_int_ops does:
+    per lane 6 (the padding test, the threshold compare, the + 1); per
+    survivor 2 (one 64-bit compare, the least any grouping of equal values
+    needs); per real cand row 4 (the weight fold)."""
+    return 6 * b + 2 * kept + 4 * heads
+
+
+def dedup_bytes(b: int) -> int:
+    """Tier D: the lo/hi and hash planes read once (16 B/lane), the
+    threshold, cand (96 x 2048 x 8 B) and the flag written once."""
+    return 16 * b + 8 + 96 * 2048 * 8 + 4
+
+
+def dedup_slab_int_ops(b: int, slab_real: int, heads: int) -> int:
+    """Tier D2's fewest INT32 instructions: per slab entry 2 (the padding
+    test); per real entry 2 (one 64-bit compare); per real cand row 4."""
+    return 2 * (b // 4) + 2 * slab_real + 4 * heads
+
+
+def dedup_slab_bytes(b: int) -> int:
+    """Tier D2: the slab read once (b/4 x 8 B), cand and the flag written
+    once."""
+    return (b // 4) * 8 + 96 * 2048 * 8 + 4
+
+
+def bound(ops: int, nbytes: int, card: dict) -> tuple[float, str, float,
+                                                      float]:
+    """(bound ms, bound_by, operations ms, bytes ms) on this card."""
+    t_ops = ops / (card["sms"] * INT32_OPS_PER_CLK_PER_SM * card["clock_hz"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            t_ops * 1e3, t_bytes * 1e3)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 def phase_build() -> None:
-    """Build the kernel library (nvcc) and the host parser (g++) at once."""
+    """Build every kernel library (one nvcc per source) and the host
+    parser (g++) at once."""
     from finch_tpu_torch import native
-    from finch_tpu_torch.ops import extract
+    from finch_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
     errors = []
     result = {}
 
-    def run(name, fn):
+    def run(name, fn, *args):
         try:
-            result[name] = fn()
-        except Exception as err:  # re-raised below, after both joined
+            result[name] = fn(*args)
+        except Exception as err:  # re-raised below, after all joined
             errors.append(err)
 
-    threads = [threading.Thread(target=run, args=("extract", extract.build)),
-               threading.Thread(target=run, args=("native", native.lib))]
+    threads = [threading.Thread(target=run, args=(n, cuda_lib.build, n))
+               for n in cuda_lib.SOURCES]
+    threads.append(threading.Thread(target=run, args=("native", native.lib)))
     for t in threads:
         t.start()
     for t in threads:
@@ -121,13 +185,20 @@ def phase_build() -> None:
     if errors:
         raise errors[0]
     secs = time.perf_counter() - t0
-    nvcc_out = result["extract"][1]
-    log(f"[build] extract.cu (nvcc) + finch_native.cpp (g++) in {secs:.2f} s"
-        f"{'' if nvcc_out else ' (extract library cached)'}")
-    ptxas = [ln for ln in nvcc_out.splitlines()
-             if "registers" in ln or "spill" in ln]
-    for ln in ptxas[-4:]:
-        log(f"[build] {ln.strip()}")
+    cached = [n for n in cuda_lib.SOURCES if not result[n][1]]
+    log(f"[build] {', '.join(f'{n}.cu' for n in cuda_lib.SOURCES)} (nvcc) "
+        f"+ finch_native.cpp (g++) in {secs:.2f} s"
+        f"{f' (cached: {cached})' if cached else ''}")
+    for n in cuda_lib.SOURCES:
+        lines = result[n][1].splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln and i + 2 < len(lines):
+                fn = ln.split("'")[1] if "'" in ln else ln
+                regs = [x.strip() for x in lines[i + 1:i + 4]
+                        if "registers" in x or "spill" in x]
+                if "extract_select" in fn and "Li21E" not in fn:
+                    continue  # one of the 28 k-specialisations is enough
+                log(f"[build] {n}: {fn[:60]} | {' | '.join(regs)}")
 
 
 def _planes(v, device):
@@ -160,8 +231,12 @@ def _time_ms(fn, runs: int, per_run: int) -> float:
     return statistics.median(times)
 
 
+LAUNCH_NAMES = ("extract_merge_weighted", "extract_select", "extract_merge",
+                "dedup_planes", "dedup_slab")
+
+
 def _device_us_per_call(fn, calls: int) -> dict:
-    """Device time per call of each extract launch, from torch.profiler."""
+    """Device time per call of each kernel launch, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -171,21 +246,83 @@ def _device_us_per_call(fn, calls: int) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        for name in ("extract_select", "extract_merge"):
+        for name in LAUNCH_NAMES:  # longest names first: one match each
             if name in e.key:
                 us = getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
                 out[name] = out.get(name, 0.0) + us / calls
+                break
     return out
 
 
-def phase_extract(seed: int, card: dict) -> dict:
-    """Kernel vs plain version on the main path's inputs."""
+def _measure(kernel: str, case: str, launch, plain, ops: int, nbytes: int,
+             card: dict, note: str) -> dict:
+    """Time the kernel (after a warm-up) and its plain version, price the
+    bound, log one line; returns the kernel's row numbers."""
+    for _ in range(3):
+        launch()
+    ms = _time_ms(launch, 20, 10)
+    plain_ms = _time_ms(plain, 5, 1)
+    split = _device_us_per_call(launch, 20)
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes, card)
+    log(f"[kernels] {kernel} {case}: equal=yes {note} kernel {ms:.4f} ms "
+        f"(median of 20 x 10 launches; device "
+        f"{ {n: round(v, 1) for n, v in split.items()} } us) plain "
+        f"{plain_ms:.3f} ms bound {bound_ms * 1e3:.1f} us ({bound_by}: ops "
+        f"{ops_ms * 1e3:.1f} us, bytes {bytes_ms * 1e3:.1f} us)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _require_equal(kernel: str, case: str, got, want, what) -> None:
+    import torch
+
+    for g, w, name in zip(got, want, what):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{kernel} kernel != plain on {case}: "
+                                 f"{name}")
+
+
+def _require_flags(kernel: str, case: str, flags, want) -> None:
+    if tuple(flags) != tuple(want):
+        raise AssertionError(f"{kernel} case {case} missed its regime: flags "
+                             f"{tuple(flags)}, wanted {tuple(want)}")
+
+
+def _low_high(rng, k: int, th: int, n: int):
+    """Random packed k-mers split by murmur3 at the threshold."""
+    import numpy as np
+
+    from finch_tpu_torch import native
+
+    pool = np.unique(rng.integers(0, 4 ** k, size=n, dtype=np.uint64))
+    h = native.murmur3_packed(pool, k, 0)
+    return pool[h <= np.uint64(th)], pool[h > np.uint64(th)]
+
+
+def _column_flood(rng, b: int, th: int):
+    """No survivor but in columns 0..7, where rows 0..7 of every chunk hold
+    8 distinct survivors: 8 x nchunks distinct per column (more than 96),
+    no chunk column over 8."""
+    import numpy as np
+
+    from finch_tpu_torch.ops import extract
+
+    nch = b // extract.CHUNK
+    low, high = _low_high(rng, K_MAIN, th, 1 << 18)
+    packed = high[rng.integers(0, len(high), size=b)]
+    lanes = packed.reshape(nch, extract.COLH, extract.CHUNK_W)
+    lanes[:, :8, :8] = low[:nch * 64].reshape(nch, 8, 8)
+    return packed << np.uint64(1)
+
+
+def phase_kernels(seed: int, card: dict) -> dict:
+    """Every kernel against its plain version at the main path's shapes."""
     import numpy as np
     import torch
 
     from finch_tpu_torch import u64
-    from finch_tpu_torch.ops import extract
+    from finch_tpu_torch.ops import dedup, extract
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -197,64 +334,145 @@ def phase_extract(seed: int, card: dict) -> dict:
     # the admission threshold of a 200k-entry state after 8 uniform 4M
     # batches (the steady state the main path reaches)
     warm = (200_000 << 64) // (8 * b)
-    cases = [
-        ("uniform_warm", K_MAIN, 0, v, warm),
+    # a duplicate stream's steady state: 64x fewer distinct values per
+    # batch keep its threshold about 64x higher (bench.py:115-119); about
+    # 2.4% of the hash space after 128 batches of 4M
+    dup_warm = int(0.024 * 2**64)
+    dup64 = np.tile(v[:b // 64], 64)
+    shuffled = dup64[rng.permutation(b)]
+    rows = {}
+
+    # ---- extract, unweighted and weighted ----
+    ex_cases = [
+        ("uniform_warm", K_MAIN, 0, v, warm, False, None),
         # the engines' default batch (sketch_stream batch_size=2M)
-        ("uniform_warm_2M", K_MAIN, 0, v[:b // 2], warm),
-        ("cold", K_MAIN, 0, v, 2**64 - 1),
-        ("dup64_stride", K_MAIN, 0, np.tile(v[:b // 64], 64), warm),
+        ("uniform_warm_2M", K_MAIN, 0, v[:b // 2], warm, False, None),
+        ("cold", K_MAIN, 0, v, 2**64 - 1, False, (1, 1)),
+        ("dup64_stride", K_MAIN, 0, dup64, warm, False, (0, 1)),
         ("one_chunk_k28", 28, 42,
          (rng.integers(0, 4 ** 28, size=extract.CHUNK, dtype=np.uint64)
-          << np.uint64(1)) | rc[:extract.CHUNK], int(0.3 * 2**64)),
+          << np.uint64(1)) | rc[:extract.CHUNK], int(0.3 * 2**64), False,
+         None),
+        ("uniform_warm", K_MAIN, 0, v, warm, True, (0, 0)),
+        ("uniform_warm_2M", K_MAIN, 0, v[:b // 2], warm, True, (0, 0)),
+        # the weighted accumulator absorbs the stride-aligned copies:
+        # aovf 0 where the unweighted one is 1
+        ("dup64_stride", K_MAIN, 0, dup64, warm, True, (0, 0)),
+        ("dup64_stride_2M", K_MAIN, 0, np.tile(v[:b // 128], 64), warm,
+         True, (0, 0)),
+        # more than 32 distinct survivors in some column
+        ("distinct_flood", K_MAIN, 0, v, dup_warm, True, (0, 1)),
+        ("distinct_flood_2M", K_MAIN, 0, v[:b // 2], dup_warm, True,
+         (0, 1)),
     ]
-    row = None
-    for name, k, s, lanes, th in cases:
+    for name, k, s, lanes, th, weighted, flags_want in ex_cases:
+        kernel = "extract_weighted" if weighted else "extract"
         vlo, vhi = _planes(lanes, dev)
         tt = torch.tensor([u64.to_i64(th)], device=dev)
-        got = extract.extract_candidates(vlo, vhi, tt, k=k, seed=s)
+        got = extract.extract_candidates(vlo, vhi, tt, k=k, seed=s,
+                                         weighted=weighted)
         torch.cuda.synchronize()
-        want = extract.extract_candidates_plain(vlo, vhi, tt, k=k, seed=s)
-        for g, w, what in zip(got, want, ("cand", "slab", "hash_lo",
-                                          "hash_hi", "covf", "aovf")):
-            if not torch.equal(g, w):
-                raise AssertionError(f"extract kernel != plain on {name}: "
-                                     f"{what}")
+        want = extract.extract_candidates_plain(vlo, vhi, tt, k=k, seed=s,
+                                                weighted=weighted)
+        _require_equal(kernel, name, got, want, ("cand", "slab", "hash_lo",
+                                                 "hash_hi", "covf", "aovf"))
         flags = (int(got[4]), int(got[5]))
-        for _ in range(3):
-            extract.extract_candidates(vlo, vhi, tt, k=k, seed=s)
-        def launch():
-            extract.extract_candidates(vlo, vhi, tt, k=k, seed=s)
-
-        ms = _time_ms(launch, 20, 10)
-        plain_ms = _time_ms(lambda: extract.extract_candidates_plain(
-            vlo, vhi, tt, k=k, seed=s), 5, 1)
-        split = _device_us_per_call(launch, 20)
+        if flags_want is not None:
+            _require_flags(kernel, name, flags, flags_want)
         pad = (vlo == -1) & (vhi == -1)
         h = u64.join(want[2], want[3])
         kept = int((~pad & u64.le(h, tt.reshape(()))).sum())
         slab_real = int((want[1] != u64.MAX).sum())
-        lanes_n = lanes.shape[0]
-        ops = extract_int_ops(k, lanes_n, kept, slab_real)
-        t_ops = ops / (card["sms"] * INT32_OPS_PER_CLK_PER_SM
-                       * card["clock_hz"])
-        t_bytes = extract_bytes(lanes_n) / HBM_BYTES_PER_S
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"[extract] {name}: b={lanes_n} k={k} seed={s} equal=yes "
-            f"covf,aovf={flags} kept={kept} "
-            f"kernel {ms:.4f} ms (median of 20 x 10 launches; device "
-            f"{ {n: round(v, 1) for n, v in split.items()} } us) plain "
-            f"{plain_ms:.3f} ms bound {bound_ms * 1e3:.1f} us ({bound_by}: "
-            f"ops {t_ops * 1e6:.1f} us, bytes {t_bytes * 1e6:.1f} us)")
-        if name == "uniform_warm":
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
-        if name == "cold" and flags[0] != 1:
-            raise AssertionError("cold threshold must overflow a column")
-        if name == "dup64_stride" and flags[1] != 1:
-            raise AssertionError("dup64 must overflow the accumulator")
-    row["max_abs_err"] = 0  # every case above required exact equality
-    return row
+        heads = int((want[0] != u64.MAX).sum())
+        n = lanes.shape[0]
+        ops = (extract_weighted_int_ops(k, n, kept, slab_real, heads)
+               if weighted else extract_int_ops(k, n, kept, slab_real))
+        row = _measure(
+            kernel, name,
+            lambda: extract.extract_candidates(vlo, vhi, tt, k=k, seed=s,
+                                               weighted=weighted),
+            lambda: extract.extract_candidates_plain(
+                vlo, vhi, tt, k=k, seed=s, weighted=weighted),
+            ops, extract_bytes(n), card,
+            f"b={n} k={k} seed={s} covf,aovf={flags} kept={kept}")
+        if (kernel, name) in (("extract", "uniform_warm"),
+                              ("extract_weighted", "dup64_stride")):
+            rows[kernel] = row
+
+    # ---- tier D: re-selection from the saved hash planes ----
+    d_cases = [
+        # a cold stride-aligned burst: chunk columns overflow, D holds it
+        ("cold_dup64_stride", dup64, 2**64 - 1, (1, 0)),
+        ("cold_dup64_stride_2M", np.tile(v[:b // 128], 64), 2**64 - 1,
+         (1, 0)),
+        # a cold uniform batch: more than 96 distinct per column
+        ("cold_uniform", v, 2**64 - 1, (1, 1)),
+        ("cold_uniform_2M", v[:b // 2], 2**64 - 1, (1, 1)),
+    ]
+    for name, lanes, th, flags_want in d_cases:
+        vlo, vhi = _planes(lanes, dev)
+        tt = torch.tensor([u64.to_i64(th)], device=dev)
+        ex = extract.extract_candidates(vlo, vhi, tt, k=K_MAIN, seed=0)
+        got = dedup.dedup_candidates(vlo, vhi, ex[2], ex[3], tt, k=K_MAIN)
+        torch.cuda.synchronize()
+        want = dedup.dedup_candidates_plain(vlo, vhi, ex[2], ex[3], tt,
+                                            k=K_MAIN)
+        _require_equal("dedup", name, got, want, ("cand", "dovf"))
+        _require_flags("dedup", name, (int(ex[4]), int(got[1])), flags_want)
+        pad = (vlo == -1) & (vhi == -1)
+        kept = int((~pad & u64.le(u64.join(ex[2], ex[3]),
+                                  tt.reshape(()))).sum())
+        heads = int((want[0] != u64.MAX).sum())
+        n = lanes.shape[0]
+        row = _measure(
+            "dedup", name,
+            lambda: dedup.dedup_candidates(vlo, vhi, ex[2], ex[3], tt,
+                                           k=K_MAIN),
+            lambda: dedup.dedup_candidates_plain(vlo, vhi, ex[2], ex[3], tt,
+                                                 k=K_MAIN),
+            dedup_int_ops(n, kept, heads), dedup_bytes(n), card,
+            f"b={n} covf,dovf={(int(ex[4]), int(got[1]))} kept={kept} "
+            f"heads={heads}")
+        if name == "cold_dup64_stride":
+            rows["dedup"] = row
+
+    # ---- tier D2: dedup straight from the slab ----
+    d2_cases = [
+        # the shuffled burst at the dup stream's steady state: a complete
+        # slab (covf 0), the unweighted accumulator overflows (aovf 1)
+        ("dup_shuffle", shuffled, dup_warm, (0, 1, 0)),
+        ("dup_shuffle_2M", shuffled[:b // 2], dup_warm, (0, 1, 0)),
+        ("column_flood", _column_flood(rng, b, dup_warm), dup_warm,
+         (0, 1, 1)),
+        ("column_flood_2M", _column_flood(rng, b // 2, dup_warm), dup_warm,
+         (0, 1, 1)),
+    ]
+    for name, lanes, th, flags_want in d2_cases:
+        vlo, vhi = _planes(lanes, dev)
+        tt = torch.tensor([u64.to_i64(th)], device=dev)
+        ex = extract.extract_candidates(vlo, vhi, tt, k=K_MAIN, seed=0)
+        slab = ex[1]
+        got = dedup.dedup_slab_candidates(slab, k=K_MAIN)
+        torch.cuda.synchronize()
+        want = dedup.dedup_slab_candidates_plain(slab, k=K_MAIN)
+        _require_equal("dedup_slab", name, got, want, ("cand", "d2ovf"))
+        flags = (int(ex[4]), int(ex[5]), int(got[1]))
+        _require_flags("dedup_slab", name, flags, flags_want)
+        slab_real = int((slab != u64.MAX).sum())
+        heads = int((want[0] != u64.MAX).sum())
+        n = lanes.shape[0]
+        row = _measure(
+            "dedup_slab", name,
+            lambda: dedup.dedup_slab_candidates(slab, k=K_MAIN),
+            lambda: dedup.dedup_slab_candidates_plain(slab, k=K_MAIN),
+            dedup_slab_int_ops(n, slab_real, heads), dedup_slab_bytes(n),
+            card, f"b={n} covf,aovf,d2ovf={flags} slab_real={slab_real} "
+            f"heads={heads}")
+        if name == "dup_shuffle":
+            rows["dedup_slab"] = row
+    for row in rows.values():
+        row["max_abs_err"] = 0  # every case above required exact equality
+    return rows
 
 
 GOLDENS = [
@@ -329,13 +547,88 @@ def make_fastq(path: str, seed: int, genome_len: int, coverage: int,
     return n
 
 
+KERNELS = ("extract", "extract_weighted", "dedup", "dedup_slab")
+
+
+def reset_launches() -> None:
+    from finch_tpu_torch.ops import dedup, extract
+
+    extract.extract_candidates.launches = 0
+    extract.extract_candidates.launches_weighted = 0
+    dedup.dedup_candidates.launches = 0
+    dedup.dedup_slab_candidates.launches = 0
+
+
+def read_launches() -> dict:
+    from finch_tpu_torch.ops import dedup, extract
+
+    return {"extract": extract.extract_candidates.launches,
+            "extract_weighted": extract.extract_candidates.launches_weighted,
+            "dedup": dedup.dedup_candidates.launches,
+            "dedup_slab": dedup.dedup_slab_candidates.launches}
+
+
+TIERS = ("A", "D2", "B", "D", "C")
+
+
+def check_launches(run: str, stats: dict, launches: dict) -> None:
+    """Each kernel's launches must equal the steps that, by the tier
+    switch's rules and the engine's own tallies, launch it: one extract
+    per kernel-path step (weighted when the hint was on), one D2 per step
+    that took D2 or fell from it to B, one D per step that took D or fell
+    from it."""
+    steps = sum(stats.get(f"tier_{t}", 0) for t in TIERS)
+    weighted = stats.get("extract_weighted", 0)
+    want = {"extract": steps - weighted, "extract_weighted": weighted,
+            "dedup": stats.get("tier_D", 0) + stats.get("D_overflow", 0),
+            "dedup_slab": (stats.get("tier_D2", 0)
+                           + stats.get("D2_overflow", 0))}
+    if steps < 1 or launches != want:
+        raise AssertionError(f"{run}: launches {launches} != the tier "
+                             f"switch's {want} (stats {stats})")
+
+
+def _tier_line(stats: dict) -> str:
+    tiers = "/".join(str(stats.get(f"tier_{t}", 0)) for t in TIERS)
+    return (f"tiers A/D2/B/D/C {tiers}, weighted extracts "
+            f"{stats.get('extract_weighted', 0)}, D2/D overflows "
+            f"{stats.get('D2_overflow', 0)}/{stats.get('D_overflow', 0)}, "
+            f"host syncs {stats.get('syncs', 0)}")
+
+
+# the A/B's runs: five pairs of the default configuration and the
+# A/B/C-only one (absorb=False, dedup_tier=False), each pair in the
+# other order than the last, so that drift on the host favours neither
+AB_ORDER = ("default", "abc", "abc", "default", "default", "abc", "abc",
+            "default", "default", "abc")
+
+
+def ab_summary(label: str, ab: dict, kmers: int) -> str:
+    """One line for an A/B: each configuration's median rate, the pairs
+    the default configuration won, the interquartile range of the
+    A/B/C-only runs (a difference of medians under it is unresolved) and
+    every time."""
+    import statistics
+
+    med = {c: statistics.median(t) for c, t in ab.items()}
+    won = sum(d < p for d, p in zip(ab["default"], ab["abc"]))
+    q1, _, q3 = statistics.quantiles(ab["abc"], n=4)
+    return (f"{label} A/B, {len(ab['abc'])} pairs in turns: default median "
+            f"{med['default']:.4f} s ({kmers / med['default']:.4g} "
+            f"k-mers/s), A/B/C-only {med['abc']:.4f} s "
+            f"({kmers / med['abc']:.4g} k-mers/s), ratio "
+            f"{med['abc'] / med['default']:.3f}x; default faster in {won} "
+            f"pairs; A/B/C-only IQR {q3 - q1:.4f} s; times default "
+            f"{[round(t, 4) for t in ab['default']]} abc "
+            f"{[round(t, 4) for t in ab['abc']]}")
+
+
 def phase_main_path(tmp: str, seed: int) -> dict:
     """The main path at real scale: CLI-default sketches three ways."""
     import torch
 
     from finch_tpu_torch import cli
     from finch_tpu_torch.core.sketching import sketch_stream
-    from finch_tpu_torch.ops import extract
     from finch_tpu_torch.serialization.json_sk import \
         multisketch_to_json_bytes
 
@@ -372,26 +665,176 @@ def phase_main_path(tmp: str, seed: int) -> dict:
 
     out = {"native_s": native_s, "kmers": kmers, "launches": {}}
     for backend in ("auto", "torch"):
-        extract.extract_candidates.launches = 0
+        reset_launches()
         got, _, secs, stats = run(backend, "cuda")
-        launches = extract.extract_candidates.launches
+        launches = read_launches()
         if got != ref:
             raise AssertionError(f"{backend} sketch differs from native")
-        tiers = {t: stats.get(f"tier_{t}", 0) for t in "ABC"}
-        steps = sum(tiers.values())
-        if launches < 1 or launches != steps:
-            raise AssertionError(f"{backend}: extract launched {launches} "
-                                 f"times for {steps} kernel-path steps")
+        check_launches(f"[main] {backend}", stats, launches)
         log(f"[main] {backend} on cuda: {kmers} k-mers in {secs:.2f} s "
-            f"({kmers / secs:.4g} k-mers/s); device steps per tier "
-            f"{tiers}, other steps "
-            f"{ {t: stats[t] for t in ('two_stage', 'small') if t in stats} }"
-            f", host syncs {stats.get('syncs', 0)}, extract launches "
-            f"{launches}; .sk identical to native")
-        out[backend] = {"s": secs, "tiers": tiers,
-                        "syncs": stats.get("syncs", 0)}
+            f"({kmers / secs:.4g} k-mers/s); {_tier_line(stats)}; other "
+            f"steps {[t for t in ('two_stage', 'small') if t in stats]}; "
+            f"launches {launches}; .sk identical to native")
+        out[backend] = {"s": secs, "stats": stats}
         out["launches"][backend] = launches
+    # A/B on the same card: the torch backend in the default configuration
+    # and in the A/B/C-only one, in turns
+    ab = {"default": [], "abc": []}
+    for config in AB_ORDER:
+        with (abc_configuration() if config == "abc"
+              else contextlib.nullcontext()):
+            got, _, secs, stats = run("torch", "cuda")
+        if got != ref:
+            raise AssertionError(f"torch ({config}) sketch differs")
+        ab[config].append(secs)
+        if len(ab[config]) == 1:
+            log(f"[main] A/B torch {config}: {_tier_line(stats)}")
+    log(ab_summary("[main] torch", ab, kmers))
+    out["ab"] = ab
     profile_torch_run(lambda: run("torch", "cuda"))
+    return out
+
+
+def _dup_batches(seed: int, shuffle: bool, nbatch: int, b: int):
+    """bench.py's duplicate-burst stream as composite u32 planes: a 64x
+    tile of b/64 random composites (copies one b/64 stride apart, so in
+    one lane column), optionally permuted across lanes; batch i XORs the
+    packed bits with (i * 0x9E3779B97F4A7C15) mod 4**k (fresh k-mers
+    every batch, copies stay equal)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pk = rng.integers(0, 4 ** K_MAIN, size=b // 64, dtype=np.uint64)
+    rc = rng.integers(0, 2, size=b // 64, dtype=np.uint64)
+    comp = np.tile((pk << np.uint64(1)) | rc, 64)
+    if shuffle:
+        comp = comp[rng.permutation(b)]
+    out = []
+    for i in range(nbatch):
+        m = ((i * 0x9E3779B97F4A7C15) % 2**64) & (4 ** K_MAIN - 1)
+        c = comp ^ np.uint64(m << 1)
+        out.append(((c & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                    (c >> np.uint64(32)).astype(np.uint32)))
+    return out
+
+
+@contextlib.contextmanager
+def abc_configuration():
+    """While inside, every engine's sketch_step runs in the A/B/C-only
+    configuration (absorb=False, dedup_tier=False): the A/B."""
+    from finch_tpu_torch.ops import bottomk
+
+    step = bottomk.sketch_step
+    bottomk.sketch_step = functools.partial(step, absorb=False,
+                                            dedup_tier=False)
+    try:
+        yield
+    finally:
+        bottomk.sketch_step = step
+
+
+def _warm_kmers(seed: int, n: int, frac: float):
+    """n distinct random k-mers hashing below frac of the hash space, as
+    composite u32 planes: one batch that takes a cold state to the
+    threshold a long run of the duplicate stream reaches."""
+    import numpy as np
+
+    from finch_tpu_torch import native
+
+    rng = np.random.default_rng(seed)
+    pk = np.unique(rng.integers(0, 4 ** K_MAIN, size=int(1.5 * n / frac),
+                                dtype=np.uint64))
+    pk = pk[native.murmur3_packed(pk, K_MAIN, 0)
+            <= np.uint64(int(frac * 2**64))][:n]
+    comp = (pk << np.uint64(1)) | rng.integers(0, 2, size=len(pk),
+                                               dtype=np.uint64)
+    return ((comp & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (comp >> np.uint64(32)).astype(np.uint32))
+
+
+def _flush_engine(eng) -> None:
+    """Merge the engine's spill into its state: the admission threshold
+    then reflects every k-mer folded so far (a flush is exact at any time;
+    the engine flushes when its spill fills and at finalize)."""
+    eng.state, _ = eng._bottomk.flush_state(
+        eng.state, eng._mh, k=eng.params.k, seed=eng.params.hash_seed)
+
+
+def phase_dup(seed: int, b: int = 1 << 21, nbatch: int = 64,
+              device: str = "cuda") -> dict:
+    """The duplicate-burst path: bench.py's two dup streams, `nbatch`
+    batches of b lanes at the CLI-default sketch parameters, from a cold
+    state and from the steady state of a long run of the stream (a first
+    batch of capacity-many k-mers below 2.4% of the hash space; bench.py
+    warms 128 batches of 4M to reach it). Each run through NativeEngine,
+    the reference, and through TorchEngine in the default configuration
+    and in the A/B/C-only one, in turns (AB_ORDER); every TorchEngine
+    sketch must equal NativeEngine's."""
+    import numpy as np
+    import torch
+
+    from finch_tpu_torch import cli
+    from finch_tpu_torch.models.engine import NativeEngine, TorchEngine
+
+    args = cli.build_cli().parse_args(["sketch", "unused.fa"])
+    k = cli.get_kmer_length(args)
+    params = cli.parse_sketch_options(
+        args, k, cli.parse_filter_options(args, k).filter_on)
+    warm = _warm_kmers(seed + 2, params.kmers_to_sketch, 0.024)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    out = {"launches": {}}
+    for stream, shuffle in (("dup64", False), ("dup_shuffle", True)):
+        batches = _dup_batches(seed + 1, shuffle, nbatch, b)
+        kmers = nbatch * b
+        for start, pre in (("cold", []), ("steady", [warm])):
+            name = f"{stream}_{start}"
+            nat = NativeEngine(params)
+            t = time.perf_counter()
+            for lo, hi in pre + batches:
+                comp = (hi.astype(np.uint64) << np.uint64(32)) | lo
+                nat.update(comp >> np.uint64(1),
+                           (comp & np.uint64(1)).astype(np.uint8))
+            ref = nat.finalize_arrays()
+            native_s = time.perf_counter() - t
+            ab = {"default": [], "abc": []}
+            first = {}
+            for config in AB_ORDER:
+                eng = TorchEngine(params, batch_size=b, device=device)
+                reset_launches()
+                with (abc_configuration() if config == "abc"
+                      else contextlib.nullcontext()):
+                    for lo, hi in pre:
+                        eng.update(lo, hi)
+                        _flush_engine(eng)
+                    sync()
+                    t = time.perf_counter()
+                    for lo, hi in batches:
+                        eng.update(lo, hi)
+                    sync()
+                    secs = time.perf_counter() - t
+                launches = read_launches()
+                got = eng.finalize_arrays()
+                if not all(np.array_equal(x, y) for x, y in zip(got, ref)):
+                    raise AssertionError(f"[dup] {name} {config}: the "
+                                         f"sketch differs from "
+                                         f"NativeEngine's")
+                check_launches(f"[dup] {name} {config}", eng.stats,
+                               launches)
+                ab[config].append(secs)
+                if config not in first:
+                    first[config] = launches
+                    log(f"[dup] {name} {config}: {kmers} k-mers in "
+                        f"{secs:.3f} s ({kmers / secs:.4g} k-mers/s); "
+                        f"{_tier_line(eng.stats)}; launches {launches}; "
+                        f"sketch identical to NativeEngine ({native_s:.2f} "
+                        f"s)")
+            log(ab_summary(f"[dup] {name}", ab, kmers))
+            out[name] = ab
+            out["launches"][name] = first["default"]
     return out
 
 
@@ -458,30 +901,43 @@ def main(argv=None) -> int:
     tmp = tempfile.mkdtemp(prefix="finch_chip_smoke_")
     try:
         phase_build()
-        row = phase_extract(opts.seed, card)
+        rows = phase_kernels(opts.seed, card)
         phase_goldens(tmp)
         main_path = phase_main_path(tmp, opts.seed)
+        dup = phase_dup(opts.seed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
-    kernels = {"kernels": [{
-        "name": "extract",
-        "route": "cuda",
-        "source": "finch_tpu_torch/csrc/extract.cu",
-        "replaces": "finch_tpu/ops/pallas_extract.py:133",
-        # the default backend's run (the `finch sketch` a user calls);
-        # every path's own count, each zeroed just before its run, beside it
-        "launches": main_path["launches"]["auto"],
-        "launches_by_path": main_path["launches"],
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": None,
-    }]}
-    print(json.dumps(kernels))
+    # launches: the extract's on the main path (the auto backend, the
+    # `finch sketch` a user calls), this slice's kernels' on the
+    # duplicate-burst path ([dup], both streams, default configuration);
+    # every path's own count, each zeroed just before its run, beside it
+    by_path = {**main_path["launches"], **dup["launches"]}
+    dup_total = {n: sum(dup["launches"][s][n] for s in dup["launches"])
+                 for n in KERNELS}
+    sources = {"extract": "extract.cu", "extract_weighted": "extract.cu",
+               "dedup": "dedup.cu", "dedup_slab": "dedup.cu"}
+    replaces = {"extract": "finch_tpu/ops/pallas_extract.py:133",
+                "extract_weighted": "finch_tpu/ops/pallas_extract.py:133",
+                "dedup": "finch_tpu/ops/pallas_extract.py:602",
+                "dedup_slab": "finch_tpu/ops/pallas_extract.py:772"}
+    entries = []
+    for n in KERNELS:
+        launches = (main_path["launches"]["auto"][n] if n == "extract"
+                    else dup_total[n])
+        if launches < 1:
+            raise AssertionError(f"{n} launched no time on its path")
+        row = rows[n]
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": f"finch_tpu_torch/csrc/{sources[n]}",
+            "replaces": replaces[n], "launches": launches,
+            "launches_by_path": {p: c[n] for p, c in by_path.items()},
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": card["kind"],

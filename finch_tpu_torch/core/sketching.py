@@ -11,6 +11,8 @@ The device engines run on `device` ("cuda" unless the caller asks for
 
 from __future__ import annotations
 
+import os
+import stat
 from typing import List, Optional, Sequence
 
 from finch_tpu_torch.core.sketch import Sketch
@@ -30,18 +32,29 @@ def _make_engine(sketch_params: SketchParams, backend: str, batch_size: int,
                        device=device)
 
 
+def _is_stream(source) -> bool:
+    """True for a path that cannot be read twice (a FIFO, a process
+    substitution): the parallel and fused pipelines sniff its first bytes
+    and rewind, so only the serial reader, which streams its fd and replays
+    the sniffed bytes, may take it."""
+    if isinstance(source, (bytes, bytearray, memoryview)) or source == "-":
+        return False
+    try:
+        return not stat.S_ISREG(os.stat(source).st_mode)
+    except OSError:
+        return False  # the parser reports the missing file
+
+
 def _choose_reader(source, k: int, canonical: bool, batch_size: int,
                    parser_threads: Optional[int] = None,
                    composite: bool = False):
     """Within-file parallel parsing via the native streaming pipeline
     whenever more than one core is available; the plain serial parser
-    otherwise (and for stdin, whose fd streams with O(1) memory). Either
-    way the k-mer stream and totals are identical."""
-    import os
-
+    otherwise (and for stdin or a FIFO, whose fd streams with O(1) memory).
+    Either way the k-mer stream and totals are identical."""
     from finch_tpu_torch.native import StreamingParallelReader
 
-    if source == "-":
+    if source == "-" or _is_stream(source):
         return KmerReader(source, k=k, canonical=canonical,
                           batch_size=batch_size, composite=composite)
     cores = (os.cpu_count() or 1) if parser_threads is None \
@@ -64,8 +77,8 @@ def _fused_native_ok(source, sketch_params: SketchParams, backend: str,
         return False
     if isinstance(source, (bytes, bytearray, memoryview)):
         return False
-    if source == "-":
-        return False  # stdin streams through the serial fd reader
+    if source == "-" or _is_stream(source):
+        return False  # stdin and FIFOs stream through the serial fd reader
     if backend == "native":
         return True
     return backend == "auto" and resolve_device(device).type == "cpu"

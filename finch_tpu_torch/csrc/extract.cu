@@ -2,9 +2,9 @@
 // per-column selection + cross-chunk accumulator.
 //
 // Replaces the Pallas TPU kernel finch_tpu/ops/pallas_extract.py
-// `_extract_kernel` (weighted=False). The Python wrapper, the contract and
-// the plain PyTorch version are in finch_tpu_torch/ops/extract.py; this
-// file computes exactly that contract:
+// `_extract_kernel`, weighted=False and weighted=True. The Python wrapper,
+// the contract and the plain PyTorch version are in
+// finch_tpu_torch/ops/extract.py; this file computes exactly that contract:
 //
 //   lanes are (nchunks, COLH=32, CHUNK_W=2048); v = (hi << 32) | lo;
 //   hash planes = murmur3_x64_128 h1 of the ASCII of packed = v >> 1;
@@ -13,6 +13,9 @@
 //     (v << 5) | row, u64::MAX when fewer; flags[0] (covf) |= more than 8;
 //   cand[r, col] = the r-th smallest of the column's slab entries over all
 //     chunks; flags[1] (aovf) |= more than 32 real entries.
+//   weighted: cand[r, col] = the r-th smallest DISTINCT slab value x of the
+//     column, written x + ((count - 1) << (2k + 2)); flags[1] |= more than
+//     32 distinct values, or a kept count - 1 too wide for the weight field.
 //
 // What bounds it on the H100: about a dozen 64x64-bit multiplies plus the
 // ASCII word assembly per lane against 16 bytes of lane traffic. At its
@@ -25,7 +28,8 @@
 // no order, so the
 // TPU's sequential cross-chunk accumulator becomes a second launch: one
 // thread per column walks nchunks * 8 slab entries and keeps the 32
-// smallest in a register insertion list.
+// smallest in a register insertion list (weighted: the 32 smallest distinct
+// values, each with its count in a second register list).
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
@@ -176,6 +180,68 @@ extract_merge(const uint64_t* __restrict__ slab, int64_t nchunks,
   for (int r = 0; r < ACC_H; ++r) cand[int64_t(r) * CHUNK_W + col] = acc[r];
 }
 
+// Launch 2, weighted form: grid CHUNK_W / MERGE_THREADS, thread = column.
+// A slab value already in the list adds one to its count; a new one is
+// inserted with count 1. Once the list holds 32 values its largest only
+// shrinks, so a value pushed out (or refused) never returns, and the kept
+// values' counts are exact whatever the order of the slab rows.
+__global__ void __launch_bounds__(MERGE_THREADS)
+extract_merge_weighted(const uint64_t* __restrict__ slab, int64_t nchunks,
+                       int wshift, uint64_t* __restrict__ cand,
+                       int32_t* __restrict__ flags) {
+  const int64_t col = int64_t(blockIdx.x) * MERGE_THREADS + threadIdx.x;
+  uint64_t acc[ACC_H];
+  uint32_t cnt[ACC_H];
+#pragma unroll
+  for (int r = 0; r < ACC_H; ++r) {
+    acc[r] = U64_MAX;
+    cnt[r] = 0;
+  }
+  bool ovf = false;
+  const int64_t rows = nchunks * ROWS_OUT;
+  for (int64_t row = 0; row < rows; ++row) {
+    const uint64_t x = slab[row * CHUNK_W + col];
+    if (x == U64_MAX) continue;
+    if (x > acc[ACC_H - 1]) {  // the list is full of smaller values
+      ovf = true;
+      continue;
+    }
+    bool found = false;
+#pragma unroll
+    for (int r = 0; r < ACC_H; ++r) {
+      const bool eq = acc[r] == x;
+      cnt[r] += eq ? 1u : 0u;
+      found |= eq;
+    }
+    if (found) continue;
+    if (acc[ACC_H - 1] != U64_MAX) ovf = true;  // its largest drops out
+    acc[ACC_H - 1] = x;
+    cnt[ACC_H - 1] = 1;
+#pragma unroll
+    for (int r = ACC_H - 1; r > 0; --r) {
+      const bool swap = acc[r] < acc[r - 1];
+      const uint64_t lo = swap ? acc[r] : acc[r - 1];
+      const uint64_t hi = swap ? acc[r - 1] : acc[r];
+      const uint32_t clo = swap ? cnt[r] : cnt[r - 1];
+      const uint32_t chi = swap ? cnt[r - 1] : cnt[r];
+      acc[r - 1] = lo;
+      acc[r] = hi;
+      cnt[r - 1] = clo;
+      cnt[r] = chi;
+    }
+  }
+  const int wbits = 64 - wshift;
+#pragma unroll
+  for (int r = 0; r < ACC_H; ++r) {
+    const bool real = acc[r] != U64_MAX;
+    const uint32_t wm1 = real ? cnt[r] - 1u : 0u;
+    if (real && wbits < 32 && (wm1 >> wbits) != 0) ovf = true;
+    cand[int64_t(r) * CHUNK_W + col] =
+        real ? acc[r] + (uint64_t(wm1) << wshift) : U64_MAX;
+  }
+  if (ovf) atomicOr(&flags[1], 1);
+}
+
 }  // namespace
 
 #define FINCH_EXTRACT_CASE(K)                                               \
@@ -188,7 +254,8 @@ extern "C" int finch_extract(const void* vlo_p, const void* vhi_p,
                              const void* thresh_p, void* cand_p, void* slab_p,
                              void* hash_lo_p, void* hash_hi_p, void* flags_p,
                              long long nchunks, int k,
-                             unsigned long long seed, void* stream) {
+                             unsigned long long seed, int weighted,
+                             void* stream) {
   const uint32_t* vlo = static_cast<const uint32_t*>(vlo_p);
   const uint32_t* vhi = static_cast<const uint32_t*>(vhi_p);
   const uint64_t* th = static_cast<const uint64_t*>(thresh_p);
@@ -215,7 +282,11 @@ extern "C" int finch_extract(const void* vlo_p, const void* vhi_p,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  extract_merge<<<CHUNK_W / MERGE_THREADS, MERGE_THREADS, 0, s>>>(
-      sl, nchunks, static_cast<uint64_t*>(cand_p), fl);
+  if (weighted)
+    extract_merge_weighted<<<CHUNK_W / MERGE_THREADS, MERGE_THREADS, 0, s>>>(
+        sl, nchunks, 2 * k + 2, static_cast<uint64_t*>(cand_p), fl);
+  else
+    extract_merge<<<CHUNK_W / MERGE_THREADS, MERGE_THREADS, 0, s>>>(
+        sl, nchunks, static_cast<uint64_t*>(cand_p), fl);
   return int(cudaGetLastError());
 }

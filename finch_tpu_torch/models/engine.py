@@ -211,7 +211,9 @@ class NativeEngine:
 class TorchEngine:
     """Device batch sketcher: fixed-capacity state on `device`, one
     bottomk.sketch_step per batch of up to `batch_size` k-mers (k <= 31;
-    the extract kernel runs for k <= 28 on batches of >= 128k lanes).
+    the extract kernel runs for k <= 28 on batches of >= 128k lanes, in
+    the JAX package's default configuration: the weighted extract and
+    tiers D and D2 join it for k <= 25).
 
     `stats` counts the tier each step took and the host syncs it made."""
 

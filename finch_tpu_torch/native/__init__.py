@@ -41,6 +41,7 @@ _ERRORS = {
     5: "malformed FASTQ record",
     6: "k must be in 1..=63 for the packed paths (1..=31 narrow, "
        "32..=63 wide)",
+    7: "out of memory",
 }
 
 

@@ -21,6 +21,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <cerrno>
+#include <sys/stat.h>
 #include <unistd.h>
 #include <zlib.h>
 
@@ -410,12 +411,24 @@ static Parser* parser_new() {
   return p;
 }
 
+extern "C" void* fn_open_fd(int fd, int* err);
+
 extern "C" void* fn_open_path(const char* path, int* err) {
   *err = 0;
   // plain files bypass zlib entirely (gzread on uncompressed input still
   // round-trips every byte through zlib's window buffer)
   FILE* pf = fopen(path, "rb");
   if (!pf) { *err = 2; return nullptr; }  // no such file
+  struct stat st;
+  if (fstat(fileno(pf), &st) != 0 || !S_ISREG(st.st_mode)) {
+    // a FIFO, a process substitution or a device cannot rewind after the
+    // magic sniff: stream its fd, which replays the sniffed bytes (nothing
+    // was read through the FILE, so its buffer holds none of them)
+    Parser* p = (Parser*)fn_open_fd(fileno(pf), err);
+    if (!p) { fclose(pf); return nullptr; }
+    p->src.pf = pf;  // owned: fn_close closes it
+    return p;
+  }
   uint8_t magic[2];
   size_t got = fread(magic, 1, 2, pf);
   if (got == 2 && magic[0] == 0x1f && magic[1] == 0x8b) {
@@ -479,6 +492,13 @@ extern "C" void* fn_open_fd(int fd, int* err) {
     }
     s->zin_cap = 1 << 18;
     s->zin = (uint8_t*)malloc(s->zin_cap);
+    if (!s->zin) {
+      *err = 7;
+      inflateEnd(&s->zs);
+      free(p->buf);
+      free(p);
+      return nullptr;
+    }
   } else {
     s->kind = SRC_FD;
   }
@@ -489,7 +509,7 @@ extern "C" void fn_close(void* h) {
   Parser* p = (Parser*)h;
   if (!p) return;
   if (p->src.kind == SRC_GZFILE && p->src.gzf) gzclose(p->src.gzf);
-  if (p->src.kind == SRC_PLAIN && p->src.pf) fclose(p->src.pf);
+  if (p->src.pf) fclose(p->src.pf);  // PLAIN, or an FD source it opened
   if (p->src.kind == SRC_MEMGZ || p->src.kind == SRC_FDGZ)
     inflateEnd(&p->src.zs);
   free(p->src.zin);
@@ -604,7 +624,8 @@ static inline __m256i byte_reverse32(__m256i b) {
 }
 #endif
 
-static void ensure_packcap(Parser* p, uint64_t bases) {
+// false (and p->err = 7) when the scratch cannot be allocated
+static bool ensure_packcap(Parser* p, uint64_t bases) {
   uint64_t need = bases / 4 + 16;  // +slack: win_be reads 8 bytes past use
   if (p->packcap < need) {
     uint64_t cap = p->packcap ? p->packcap : (1 << 12);
@@ -613,8 +634,17 @@ static void ensure_packcap(Parser* p, uint64_t bases) {
     free(p->rbuf);
     p->fbuf = (uint8_t*)malloc(cap);
     p->rbuf = (uint8_t*)malloc(cap);
+    if (!p->fbuf || !p->rbuf) {
+      free(p->fbuf);
+      free(p->rbuf);
+      p->fbuf = p->rbuf = nullptr;
+      p->packcap = 0;
+      p->err = 7;
+      return false;
+    }
     p->packcap = cap;
   }
+  return true;
 }
 
 // Pack a verified pure-base run s[0..L) into fbuf (forward codes) and rbuf
@@ -674,7 +704,8 @@ static inline uint64_t win_be(const uint8_t* buf, uint64_t start,
 // The extraction core. Returns:
 //   1  produced >=1 k-mer and output is full (call again)
 //   0  EOF reached, all input consumed
-//  -1  error (p->err set): 1=empty/unknown format, 4=read error, 5=bad fastq
+//  -1  error (p->err set): 1=empty/unknown format, 4=read error, 5=bad fastq,
+//      7=out of memory
 //
 // canonical != 0: emit canonical codes + is_rc flags (Mash/Scaled schemes).
 // canonical == 0: emit forward-strand codes only (AllCounts scheme,
@@ -830,7 +861,7 @@ static int parse_batch_impl(void* h, uint32_t k, int canonical, uint64_t cap,
               n += emit;
               kmers += emit;
             }
-            ensure_packcap(p, r);
+            if (!ensure_packcap(p, r)) return -1;
             pack_run(p->buf + i, r, p->fbuf, p->rbuf);
             const uint32_t k2 = 2 * k;
             const uint8_t* fb = p->fbuf;

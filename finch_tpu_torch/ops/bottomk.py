@@ -16,12 +16,12 @@ What differs from the JAX package:
   device sync; ``sketch_step`` counts them in ``stats["syncs"]``.
 * The log-shift ``_scan`` loops (a v5e workaround) are ``torch.cumsum`` /
   ``torch.cummax`` / ``torch.cummin``.
-* The kernel path is this slice's configuration of the JAX main path:
-  the unweighted extract kernel (``ops/extract.py``) with tiers A, B and C
-  (``sketch_step(..., absorb=False, dedup_tier=False)`` in the JAX
-  package). The weighted kernel and the dedup tiers D and D2 are not
-  ported yet; the state keeps its 7th element (the adaptive-absorb hint,
-  always 0 here) so that the layout stays interchangeable.
+* The kernel path is the JAX main path in its default configuration
+  (``absorb=True, dedup_tier=True``): the extract kernel, unweighted or
+  weighted as the adaptive-absorb hint says (``ops/extract.py``), and
+  tiers A, D2, B, D and C with the dedup kernels (``ops/dedup.py``).
+  ``absorb=False, dedup_tier=False`` gives the unweighted kernel with
+  tiers A, B and C. The ``lax.cond``s become host reads of the flags.
 
 The transposed two-stage sort is kept as in the JAX package, so the spill
 layout and the scaled `below` bound agree with it entry for entry.
@@ -32,7 +32,7 @@ State (capacity C, spill S; hashes ascending):
     packed[C] int64 — 2-bit packed canonical k-mer codes
     spill[S]  int64 — spill-encoded candidates; u64::MAX when empty
     fill[1]   int32 — spill occupancy
-    hint[1]   int32 — adaptive-absorb hint (0 in this slice)
+    hint[1]   int32 — adaptive-absorb hint: 1 = run the weighted extract
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import torch
 
 from finch_tpu_torch import u64
 from finch_tpu_torch.errors import FinchMessageError
-from finch_tpu_torch.ops import extract
+from finch_tpu_torch.ops import dedup, extract
 from finch_tpu_torch.ops.murmur3 import hash_packed_kmers
 
 MAX = u64.MAX
@@ -335,19 +335,100 @@ def _tally(stats, name: str) -> None:
         stats[name] = stats.get(name, 0) + 1
 
 
+def _worth(a, k: int):
+    """The adaptive-absorb criterion on spill-encoded weighted heads (a
+    0-dim bool tensor): the absorbed copies (the weight fields' sum) are
+    at least a quarter of all occurrences. u64 arithmetic, as in JAX."""
+    real = a != MAX
+    absorbed = torch.where(real, u64.shr(a, 2 * k + 2), 0).sum()
+    occ = absorbed + real.sum()
+    return (absorbed != 0) & u64.le(occ, absorbed * 4)
+
+
+def _kernel_step(carry, vlo, vhi, valid, thresh, hint: int, b: int, *,
+                 k, seed, absorb, dedup_tier, stats, kw):
+    """The kernel path of sketch_step (JAX ``_sketch_step`` :581-804): one
+    extract, the tier switch, the paging of the tier's candidates and the
+    next hint (a device tensor, or None to keep the old one)."""
+    w_ok = absorb and extract.supports_weighted(k)
+    weighted = w_ok and hint != 0
+    if weighted:
+        _tally(stats, "extract_weighted")
+    cand, slab, kh_lo, kh_hi, covf, aovf = extract.extract_candidates(
+        vlo, vhi, thresh.reshape(1), k=k, seed=seed, weighted=weighted)
+    covf, aovf = _read(torch.stack([covf, aovf]), stats)
+    dirty = bool(covf or aovf)
+    use_dedup = dedup_tier and dedup.supports_dedup(k, b)
+    have_d2 = use_dedup and dedup.supports_dedup_slab(k, b)
+    cand_d2 = None
+    tier = "A"
+    if dirty and use_dedup and have_d2 and not covf:
+        # a complete slab: D2 collapses its duplicates, or the step pages
+        # the slab (B) — D would overflow too on the same multiset
+        cand_d2, d2ovf = dedup.dedup_slab_candidates(slab, k=k)
+        if _read(d2ovf, stats):
+            _tally(stats, "D2_overflow")
+            tier = "B"
+        else:
+            tier = "D2"
+    elif dirty and use_dedup:
+        # the slab lost survivors (covf), or there is no D2 at this shape
+        cand_d, dovf = dedup.dedup_candidates(vlo, vhi, kh_lo, kh_hi,
+                                              thresh.reshape(1), k=k)
+        if _read(dovf, stats):
+            _tally(stats, "D_overflow")
+            tier = "C" if covf else "B"
+        else:
+            tier = "D"
+    elif dirty:
+        # tier C if a chunk column overflowed (the slab lost survivors),
+        # else B if the accumulator dropped some
+        tier = "C" if covf else "B"
+    _tally(stats, f"tier_{tier}")
+    if tier == "A":
+        _stage2_pages(carry, cand, **kw)
+    elif tier == "D2":
+        _stage2_pages(carry, cand_d2, compact=True, **kw)
+    elif tier == "D":
+        _stage2_pages(carry, cand_d, compact=True, **kw)
+    elif tier == "B":
+        _stage2_pages(carry, slab, aggregate=True, compact=True, **kw)
+    else:
+        keep = valid & u64.le(u64.join(kh_lo, kh_hi), thresh)
+        comp = torch.where(keep, u64.join(vlo, vhi) + 1, MAX)
+        _run_two_stage(carry, comp, b, compact=True, **kw)
+    if not w_ok:
+        return None
+    # adaptive-absorb feedback (JAX :764-804): a weighted step keeps the
+    # hint while its own heads show absorbed mass; an unweighted step
+    # engages it when D2's collapse shows it
+    if weighted:
+        saw = _worth(cand, k)
+    elif use_dedup and have_d2:
+        saw = (_worth(cand_d2, k) if cand_d2 is not None
+               else torch.zeros((), dtype=torch.bool, device=vlo.device))
+    else:
+        saw = torch.tensor(dirty and not covf, device=vlo.device)
+    return saw.to(torch.int32).reshape(1)
+
+
 def sketch_step(state, comp_lo, comp_hi, nvalid: int, max_hash: int,
                 *, k: int, seed: int, has_max_hash: bool,
-                use_kernel: bool = False, stats: dict | None = None):
+                use_kernel: bool = False, absorb: bool = True,
+                dedup_tier: bool = True, stats: dict | None = None):
     """Fold one batch of canonical k-mers into the sketch state.
 
     The counterpart of ``finch_tpu.ops.bottomk.sketch_step`` with
-    composite=True, absorb=False and dedup_tier=False (spill compaction
-    on, its default). Inputs are the parser's ((packed << 1) | is_rc)
-    planes as int32 (lo, hi); nvalid (int) leading lanes are real;
-    max_hash is a u64 int. The input state is not modified. Returns
-    (new_state, below), below a 0-dim int64 tensor (see the JAX
-    docstring). `stats`, when given, counts the tier each step took and
-    the host syncs."""
+    composite=True and spill compaction on, in the JAX package's default
+    configuration (absorb=True: the weighted extract when the hint says
+    so; dedup_tier=True: tiers D2 and D). Inputs are the parser's
+    ((packed << 1) | is_rc) planes as int32 (lo, hi); nvalid (int) leading
+    lanes are real; max_hash is a u64 int. The input state is not
+    modified. Returns (new_state, below), below a 0-dim int64 tensor (see
+    the JAX docstring). `stats`, when given, counts the tier each step
+    took (tier_A, tier_D2, tier_B, tier_D, tier_C, two_stage, small), the
+    weighted extracts (extract_weighted), the dedup runs that overflowed
+    (D2_overflow, D_overflow) and the host syncs."""
     sh, sc, se, spk, spill, fill, hint = state
     b = comp_lo.shape[0]
     if b > (1 << 25):
@@ -365,8 +446,8 @@ def sketch_step(state, comp_lo, comp_hi, nvalid: int, max_hash: int,
     mh_arg = max_hash if has_max_hash else 0
 
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    carry = _Carry((sh, sc, se, spk), spill.clone(),
-                   _read(fill, stats)[0], zero)
+    fill_n, hint_n = _read(torch.cat([fill, hint]), stats)
+    carry = _Carry((sh, sc, se, spk), spill.clone(), fill_n, zero)
     kw = dict(k=k, seed=seed, mh_arg=mh_arg, stats=stats)
 
     two_stage = (b >= STAGE1_H * STAGE2_H * 16
@@ -379,23 +460,11 @@ def sketch_step(state, comp_lo, comp_hi, nvalid: int, max_hash: int,
     if use_kernel and two_stage and extract.supports(k, b):
         vlo = torch.where(valid, comp_lo, -1)
         vhi = torch.where(valid, comp_hi, -1)
-        cand, slab, kh_lo, kh_hi, covf, aovf = extract.extract_candidates(
-            vlo, vhi, thresh.reshape(1), k=k, seed=seed)
-        covf, aovf = _read(torch.stack([covf, aovf]), stats)
-        # tier C if a chunk column overflowed (the slab lost survivors),
-        # else B if the accumulator dropped some, else A
-        if covf:
-            _tally(stats, "tier_C")
-            h = u64.join(kh_lo, kh_hi)
-            keep = valid & u64.le(h, thresh)
-            comp = torch.where(keep, u64.join(vlo, vhi) + 1, MAX)
-            _run_two_stage(carry, comp, b, compact=True, **kw)
-        elif aovf:
-            _tally(stats, "tier_B")
-            _stage2_pages(carry, slab, aggregate=True, compact=True, **kw)
-        else:
-            _tally(stats, "tier_A")
-            _stage2_pages(carry, cand, **kw)
+        new_hint = _kernel_step(carry, vlo, vhi, valid, thresh, hint_n, b,
+                                k=k, seed=seed, absorb=absorb,
+                                dedup_tier=dedup_tier, stats=stats, kw=kw)
+        if new_hint is not None:
+            hint = new_hint
     elif two_stage:
         _tally(stats, "two_stage")
         _run_two_stage(carry, plain_comp(), b, **kw)

@@ -1,17 +1,19 @@
 """Fused extract: murmur3 + threshold prefilter + per-column selection.
 
 The counterpart of ``finch_tpu/ops/pallas_extract.py``: it replaces the
-Pallas TPU kernel ``_extract_kernel`` in its unweighted form
-(``pallas_extract.py:133``, reached through ``_extract_candidates``). The
-kernel itself is hand-written CUDA for Hopper (``csrc/extract.cu``), built
-with ``nvcc`` at first use into ``csrc/_build/`` and called through a plain
-C interface with ctypes. Beside it, ``extract_candidates_plain`` computes
-the same function with PyTorch ops; the wrapper takes it only for CPU
-tensors, and for CUDA tensors launches the kernel or raises.
+Pallas TPU kernel ``_extract_kernel`` (``pallas_extract.py:133``, reached
+through ``_extract_candidates``) in both its forms, unweighted and
+weighted (duplicate-absorbing, ``weighted=True``, k <= 25). The kernel
+itself is hand-written CUDA for Hopper (``csrc/extract.cu``), built with
+``nvcc`` at first use (``ops/cuda_lib.py``) and called through a plain C
+interface with ctypes. Beside it, ``extract_candidates_plain`` computes the
+same function with PyTorch ops; the wrapper takes it only for CPU tensors,
+and for CUDA tensors launches the kernel or raises.
 
-Contract (the TPU kernel's, pinned by tests/test_torch_extract.py). Lanes
-are viewed as (nchunks, COLH=32, CHUNK_W=2048); a column is one of the
-CHUNK_W positions of a chunk, 32 lanes tall.
+Contract (the TPU kernel's, pinned by tests/test_torch_extract.py and
+tests/test_torch_weighted.py). Lanes are viewed as (nchunks, COLH=32,
+CHUNK_W=2048); a column is one of the CHUNK_W positions of a chunk, 32
+lanes tall.
 
 * per lane: v = (hi << 32) | lo is the composite (packed << 1) | is_rc;
   a lane with both planes 0xFFFFFFFF is padding. The hash planes hold the
@@ -21,10 +23,21 @@ CHUNK_W positions of a chunk, 32 lanes tall.
   smallest survivors, ordered by (v, row) with the 5-bit row index
   appended so that equal k-mers stay distinct lanes and counts stay exact;
   slab rows are written descending (row 7 holds the smallest), empty rows
-  are u64::MAX. covf = 1 if any chunk-column kept more than 8.
-* per column: cand holds the ACC_H=32 smallest of that column's slab
-  entries over every chunk, ascending down the rows, u64::MAX padded;
-  aovf = 1 if a column's real slab entries exceed 32.
+  are u64::MAX. covf = 1 if any chunk-column kept more than 8. The slab
+  is the same in both forms.
+* per column, unweighted: cand holds the ACC_H=32 smallest of that
+  column's slab entries over every chunk, ascending down the rows,
+  u64::MAX padded; aovf = 1 if a column's real slab entries exceed 32.
+* per column, weighted: cand holds the 32 smallest DISTINCT slab values of
+  the column, ascending, each as value + ((count - 1) << (2k + 2)) mod
+  2**64 with count its number of slab entries, u64::MAX padded; aovf = 1
+  if a column holds more than 32 distinct values, or if a kept count - 1
+  does not fit the 64 - (2k + 2) bit weight field (checked only when that
+  field is under 32 bits). This is what the TPU kernel's absorb pass,
+  in-slab run collapse, half-cleaner and bitonic merge compute: after
+  every chunk its accumulator holds the 32 smallest distinct values seen
+  so far, a value pushed out never returns (32 smaller ones stay), so a
+  kept value was never dropped and its count is exact.
 
 Outputs: cand int64[32*2048], slab int64[b/4], hash_lo/hash_hi int32[b]
 (u32 bits), covf/aovf int32 scalars. All u64 values are int64 bit patterns
@@ -45,23 +58,20 @@ register insertion list, so nothing but the slab and hash planes touches
 device memory. The cross-chunk accumulator cannot live in one block's
 scratch across a sequential grid as on the TPU (GPU blocks run in no
 order), so a second launch walks each column's nchunks*8 slab entries and
-keeps the 32 smallest in registers. Tuning (more threads per column, fewer
-integer instructions in the word assembly) is later work.
+keeps the 32 smallest (weighted: the 32 smallest distinct, with counts) in
+registers. Tuning (more threads per column, fewer integer instructions in
+the word assembly) is later work.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from finch_tpu_torch import u64
 from finch_tpu_torch.errors import FinchMessageError
+from finch_tpu_torch.ops import cuda_lib
 from finch_tpu_torch.ops.murmur3 import hash_packed_kmers
 
 COLH = 32
@@ -71,15 +81,6 @@ CHUNK_W = 2048
 ACC_H = 32
 CHUNK = COLH * CHUNK_W
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "extract.cu")
-_BUILD = os.path.join(os.path.dirname(_HERE), "csrc", "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-_lock = threading.Lock()
-_lib = None
-
 
 def supports(k: int, b: int) -> bool:
     """Kernel preconditions (``pallas_extract.supports``): the row-index
@@ -87,52 +88,18 @@ def supports(k: int, b: int) -> bool:
     return 2 * k + 1 + ROW_BITS < 64 and b % CHUNK == 0 and b >= CHUNK
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise FinchMessageError("nvcc not found: the CUDA toolkit is needed "
-                                "to build csrc/extract.cu")
-    return found
+def supports_weighted(k: int) -> bool:
+    """The weighted form's precondition (``pallas_extract.supports_weighted``):
+    the (count - 1) << (2k+2) field must have at least 12 bits (k <= 25)."""
+    return 64 - (2 * k + 2) >= 12
 
 
-def build() -> tuple[str, str]:
-    """Compile csrc/extract.cu into csrc/_build (keyed by a content hash).
-
-    Returns (path of the shared library, compiler output). The output holds
-    ptxas' registers, shared memory and spills per kernel; it is empty when
-    the cached library is reused."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_BUILD, exist_ok=True)
-    so_path = os.path.join(_BUILD, f"libextract_{digest}.so")
-    if os.path.exists(so_path):
-        return so_path, ""
-    tmp = so_path + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise FinchMessageError(
-            f"nvcc failed on {_SRC}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so_path)
-    return so_path, proc.stdout + proc.stderr
-
-
-def _cuda_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        with _lock:
-            if _lib is None:
-                lib = ctypes.CDLL(build()[0])
-                p = ctypes.c_void_p
-                lib.finch_extract.restype = ctypes.c_int
-                lib.finch_extract.argtypes = [
-                    p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_uint64, p]
-                _lib = lib
-    return _lib
+def _declare(lib) -> None:
+    p = ctypes.c_void_p
+    lib.finch_extract.restype = ctypes.c_int
+    lib.finch_extract.argtypes = [
+        p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_uint64, ctypes.c_int, p]
 
 
 def _check(vlo, vhi, thresh, k: int) -> None:
@@ -153,14 +120,21 @@ def _check(vlo, vhi, thresh, k: int) -> None:
 
 
 def extract_candidates(vlo: torch.Tensor, vhi: torch.Tensor,
-                       thresh: torch.Tensor, *, k: int, seed: int):
-    """Run the fused extract over b = vlo.numel() lanes (see module doc).
+                       thresh: torch.Tensor, *, k: int, seed: int,
+                       weighted: bool = False):
+    """Run the fused extract over b = vlo.numel() lanes (see module doc);
+    `weighted` selects the duplicate-absorbing form (k <= 25).
 
     Returns (cand, slab, hash_lo, hash_hi, covf, aovf). CPU tensors take
-    the plain PyTorch version; CUDA tensors launch the kernel."""
+    the plain PyTorch version; CUDA tensors launch the kernel. Launches are
+    counted in ``extract_candidates.launches`` (unweighted) and
+    ``extract_candidates.launches_weighted``."""
     _check(vlo, vhi, thresh, k)
+    if weighted and not supports_weighted(k):
+        raise FinchMessageError(f"the weighted extract needs k <= 25 (k={k})")
     if vlo.device.type == "cpu":
-        return extract_candidates_plain(vlo, vhi, thresh, k=k, seed=seed)
+        return extract_candidates_plain(vlo, vhi, thresh, k=k, seed=seed,
+                                        weighted=weighted)
     if vlo.device.type != "cuda":
         raise FinchMessageError(
             f"extract runs on cuda or cpu tensors, not {vlo.device}")
@@ -176,25 +150,65 @@ def extract_candidates(vlo: torch.Tensor, vhi: torch.Tensor,
     thresh = thresh.reshape(1).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _cuda_lib().finch_extract(
+        err = cuda_lib.load("extract", _declare).finch_extract(
             vlo.data_ptr(), vhi.data_ptr(), thresh.data_ptr(),
             cand.data_ptr(), slab.data_ptr(), h_lo.data_ptr(),
             h_hi.data_ptr(), flags.data_ptr(), nchunks, k,
-            u64.to_u64(seed), stream)
+            u64.to_u64(seed), int(weighted), stream)
     if err != 0:
         raise FinchMessageError(f"extract kernel launch failed: CUDA error "
                                 f"{err}")
-    extract_candidates.launches += 1
+    if weighted:
+        extract_candidates.launches_weighted += 1
+    else:
+        extract_candidates.launches += 1
     return cand, slab, h_lo, h_hi, flags[0], flags[1]
 
 
 extract_candidates.launches = 0
+extract_candidates.launches_weighted = 0
+
+
+def _pad_cols(cols: torch.Tensor, width: int) -> torch.Tensor:
+    """Right-pad (CHUNK_W, n) with u64::MAX up to `width` columns."""
+    if cols.shape[1] >= width:
+        return cols
+    return torch.cat([cols, torch.full(
+        (cols.shape[0], width - cols.shape[1]), u64.MAX, dtype=torch.int64,
+        device=cols.device)], 1)
+
+
+def _weighted_cand(cols: torch.Tensor, k: int):
+    """Weighted cand and aovf from each column's sorted slab entries
+    (CHUNK_W, n): the ACC_H smallest distinct values with their counts."""
+    n = cols.shape[1]
+    real = cols != u64.MAX
+    ones = torch.ones((CHUNK_W, 1), dtype=torch.bool, device=cols.device)
+    neq = cols[:, 1:] != cols[:, :-1]
+    head = real & torch.cat([ones, neq], 1)
+    pos = torch.arange(n, dtype=torch.int64, device=cols.device)
+    # the last index of each run: suffix-min of the run ends
+    end = torch.where(torch.cat([neq, ones], 1), pos, n)
+    end = torch.cummin(end.flip(1), 1).values.flip(1)
+    heads, order = u64.sort(torch.where(head, cols, u64.MAX), dim=1)
+    counts = torch.where(head, end - pos + 1, 0).gather(1, order)
+    aovf = (head.sum(1) > ACC_H).any()
+    heads = _pad_cols(heads, ACC_H)[:, :ACC_H]
+    counts = _pad_cols(counts, ACC_H)[:, :ACC_H]
+    kept = heads != u64.MAX
+    wshift = 2 * k + 2
+    wm1 = counts - 1
+    if 64 - wshift < 32:
+        aovf = aovf | (kept & ((wm1 >> (64 - wshift)) != 0)).any()
+    cand = torch.where(kept, heads + (wm1 << wshift), u64.MAX)
+    return cand, aovf
 
 
 def extract_candidates_plain(vlo: torch.Tensor, vhi: torch.Tensor,
-                             thresh: torch.Tensor, *, k: int, seed: int):
+                             thresh: torch.Tensor, *, k: int, seed: int,
+                             weighted: bool = False):
     """The same function as the kernel, written with PyTorch ops on int64
-    lanes (a sort stands in for the kernel's insertion lists)."""
+    lanes (sorts stand in for the kernel's insertion lists)."""
     b = vlo.shape[0]
     nch = b // CHUNK
     v = u64.join(vlo, vhi)
@@ -211,12 +225,12 @@ def extract_candidates_plain(vlo: torch.Tensor, vhi: torch.Tensor,
     slab = torch.where(top != u64.MAX, u64.shr(top, ROW_BITS) + 1,
                        u64.MAX).flip(1)
     cols, _ = u64.sort(slab.permute(2, 0, 1).reshape(CHUNK_W, -1), dim=1)
-    aovf = (cols[:, ACC_H:] != u64.MAX).any()
-    if cols.shape[1] < ACC_H:
-        cols = torch.cat([cols, torch.full(
-            (CHUNK_W, ACC_H - cols.shape[1]), u64.MAX, dtype=torch.int64,
-            device=v.device)], 1)
-    cand = cols[:, :ACC_H].t().reshape(-1).contiguous()
+    if weighted:
+        cols, aovf = _weighted_cand(cols, k)
+    else:
+        aovf = (cols[:, ACC_H:] != u64.MAX).any()
+        cols = _pad_cols(cols, ACC_H)[:, :ACC_H]
+    cand = cols.t().reshape(-1).contiguous()
     h_lo, h_hi = u64.split(h)
     return (cand, slab.reshape(-1), h_lo, h_hi, covf.to(torch.int32),
             aovf.to(torch.int32))

@@ -61,7 +61,8 @@ def torch_step(state_np, lo, hi, nvalid, max_hash=0, has_max_hash=False,
     new, below = tbk.sketch_step(
         tbk.state_from_numpy(state_np), u64.from_numpy(lo),
         u64.from_numpy(hi), nvalid, max_hash, k=K, seed=SEED,
-        has_max_hash=has_max_hash, use_kernel=use_kernel, stats=stats)
+        has_max_hash=has_max_hash, use_kernel=use_kernel, absorb=False,
+        dedup_tier=False, stats=stats)
     return tbk.state_to_numpy(new), int(below), stats
 
 

@@ -48,7 +48,8 @@ def torch_step(state_np, lo, hi, nvalid, max_hash=0, has_max_hash=False):
     new, below = tbk.sketch_step(
         tbk.state_from_numpy(state_np), u64.from_numpy(lo),
         u64.from_numpy(hi), nvalid, max_hash, k=K, seed=SEED,
-        has_max_hash=has_max_hash, use_kernel=True, stats=stats)
+        has_max_hash=has_max_hash, use_kernel=True, absorb=False,
+        dedup_tier=False, stats=stats)
     out, _ = tbk.flush_state(new, max_hash, k=K, seed=SEED)
     return (tbk.state_to_numpy(new), tbk.state_to_numpy(out), int(below),
             stats)

@@ -2,9 +2,11 @@
 cpu`) writes bytes equal to the frozen goldens, and its entry points raise
 when no card is present unless the caller asks for the CPU."""
 
+import gzip
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import finch_tpu_torch as ft
 from finch_tpu_torch.core.sketching import sketch_stream
 from finch_tpu_torch.errors import FinchMessageError
 from finch_tpu_torch.models import engine as eng
+from finch_tpu_torch.serialization.json_sk import multisketch_to_json_bytes
 
 torch.set_num_threads(2)
 
@@ -71,8 +74,8 @@ def test_reads_take_the_two_chunk_kernel_path():
     sketch_stream(READS_FQ, READS_REL, params, filters, backend="torch",
                   device="cpu", engine_out=engines, parser_threads=1)
     stats = engines[0].stats
-    assert stats.get("tier_A", 0) + stats.get("tier_B", 0) \
-        + stats.get("tier_C", 0) == 1
+    assert sum(stats.get(f"tier_{t}", 0)
+               for t in ("A", "B", "C", "D", "D2")) == 1
 
 
 def test_hybrid_engine_migrates_exactly():
@@ -111,7 +114,8 @@ def test_torch_engine_equals_numpy(params):
         rc = rng.integers(0, 2, size=1 << 17).astype(np.uint8)
         dev.update(packed, rc)
         ref.update(packed, rc)
-    assert dev.stats.get("tier_C", 0) + dev.stats.get("tier_A", 0) >= 2
+    assert sum(dev.stats.get(f"tier_{t}", 0)
+               for t in ("A", "B", "C", "D", "D2")) >= 2
     if params.sketch_type == "scaled":
         assert dev.capacity > 4096
     for a, b in zip(dev.finalize_arrays(), ref.finalize_arrays()):
@@ -136,3 +140,35 @@ def test_no_card_raises(monkeypatch):
 def test_torch_engine_refuses_wide_k():
     with pytest.raises(FinchMessageError, match="k <= 31"):
         eng.TorchEngine(ft.SketchParams.mash(kmer_length=32), device="cpu")
+
+
+@pytest.mark.parametrize("gz", [False, True], ids=["plain", "gzip"])
+def test_fifo_sketches_like_the_file(tmp_path, gz):
+    """A FIFO cannot rewind after the parser sniffs its format: the port
+    streams it through the fd reader (which replays the sniffed bytes)
+    and writes the same sketch as for the regular file."""
+    with open(READS_FQ, "rb") as f:
+        data = f.read()
+    if gz:
+        data = gzip.compress(data)
+    regular = tmp_path / "reads"
+    regular.write_bytes(data)
+    params = ft.SketchParams.mash(kmers_to_sketch=100 * 200, final_size=100)
+    filters = ft.FilterParams(filter_on=None, err_filter=0.21,
+                              strand_filter=0.1)
+    want = multisketch_to_json_bytes([sketch_stream(
+        str(regular), READS_REL, params, filters, backend="native")])
+    for backend in ("native", "torch"):
+        fifo = tmp_path / f"fifo_{backend}"
+        os.mkfifo(fifo)
+
+        def feed(path=fifo):
+            with open(path, "wb") as f:
+                f.write(data)
+
+        writer = threading.Thread(target=feed, daemon=True)
+        writer.start()
+        got = sketch_stream(str(fifo), READS_REL, params, filters,
+                            backend=backend, device="cpu")
+        writer.join(timeout=60)
+        assert multisketch_to_json_bytes([got]) == want, backend
