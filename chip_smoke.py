@@ -198,7 +198,8 @@ def phase_build() -> None:
                         if "registers" in x or "spill" in x]
                 if "extract_select" in fn and "Li21E" not in fn:
                     continue  # one of the 28 k-specialisations is enough
-                log(f"[build] {n}: {fn[:60]} | {' | '.join(regs)}")
+                name = next((x for x in LAUNCH_NAMES if x in fn), fn[:60])
+                log(f"[build] {n}: {name} | {' | '.join(regs)}")
 
 
 def _planes(v, device):
@@ -231,8 +232,36 @@ def _time_ms(fn, runs: int, per_run: int) -> float:
     return statistics.median(times)
 
 
-LAUNCH_NAMES = ("extract_merge_weighted", "extract_select", "extract_merge",
-                "dedup_planes", "dedup_slab")
+# the kernels' names as the profiler reports them; no name is a substring
+# of another, so each profiler event matches at most one
+def _host_us(fn, calls: int = 200) -> float:
+    """Host time per wrapper call, enqueueing `calls` back-to-back calls
+    (fewer launches than the launch queue holds, so none waits for the
+    device): what a call costs the host, whatever the device does."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
+LAUNCH_NAMES = ("extract_select", "extract_warp_merge",
+                "extract_merge_weighted", "dedup_planes", "dedup_slab_warp")
+
+
+def launch_grids(kernel: str, b: int) -> str:
+    """Each launch's grid x block, as csrc/extract.cu and csrc/dedup.cu
+    configure them for b lanes."""
+    nch = b // (32 * 2048)
+    select = f"extract_select ({2048 // 128}, {nch}) x 128"
+    return {"extract": f"{select}; extract_warp_merge 256 x 256",
+            "extract_weighted": f"{select}; extract_merge_weighted 16 x 128",
+            "dedup": "dedup_planes 256 x 256",
+            "dedup_slab": "dedup_slab_warp 256 x 256"}[kernel]
 
 
 def _device_us_per_call(fn, calls: int) -> dict:
@@ -246,12 +275,11 @@ def _device_us_per_call(fn, calls: int) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        for name in LAUNCH_NAMES:  # longest names first: one match each
+        for name in LAUNCH_NAMES:
             if name in e.key:
                 us = getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
                 out[name] = out.get(name, 0.0) + us / calls
-                break
     return out
 
 
@@ -263,15 +291,18 @@ def _measure(kernel: str, case: str, launch, plain, ops: int, nbytes: int,
         launch()
     ms = _time_ms(launch, 20, 10)
     plain_ms = _time_ms(plain, 5, 1)
+    host_us = _host_us(launch)  # before the profiler, which slows launches
     split = _device_us_per_call(launch, 20)
     bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes, card)
     log(f"[kernels] {kernel} {case}: equal=yes {note} kernel {ms:.4f} ms "
         f"(median of 20 x 10 launches; device "
-        f"{ {n: round(v, 1) for n, v in split.items()} } us) plain "
-        f"{plain_ms:.3f} ms bound {bound_ms * 1e3:.1f} us ({bound_by}: ops "
-        f"{ops_ms * 1e3:.1f} us, bytes {bytes_ms * 1e3:.1f} us)")
+        f"{ {n: round(v, 2) for n, v in split.items()} } us; host "
+        f"{host_us:.1f} us a call) plain "
+        f"{plain_ms:.3f} ms bound {bound_ms * 1e3:.2f} us ({bound_by}: ops "
+        f"{ops_ms * 1e3:.2f} us, bytes {bytes_ms * 1e3:.2f} us)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, device_us=sum(split.values()),
+                host_us=host_us)
 
 
 def _require_equal(kernel: str, case: str, got, want, what) -> None:
@@ -316,6 +347,84 @@ def _column_flood(rng, b: int, th: int):
     return packed << np.uint64(1)
 
 
+# survivors per chunk of the edge column: 32 real slab entries over 5
+# chunks (aovf 0) and 33 (aovf 1)
+EDGE_COUNTS = {"exactly_32": (8, 8, 8, 4, 4), "just_33": (8, 8, 8, 8, 1)}
+
+
+def _edge_column(rng, b: int, counts):
+    """Lanes with no survivor at threshold 2**63 but in column 5 of the
+    first len(counts) chunks: counts[c] of them in chunk c. Chunks 3 and
+    4 repeat chunk 0's first k-mers, so equal slab values sit within one
+    merge step (chunks 0-3) and across two (chunk 4)."""
+    import numpy as np
+
+    from finch_tpu_torch.ops import extract
+
+    low, high = _low_high(rng, K_MAIN, 2**63, 1 << 14)
+    lanes = high[rng.integers(0, len(high), size=b)].reshape(
+        b // extract.CHUNK, extract.COLH, extract.CHUNK_W)
+    for c, n in enumerate(counts):
+        lanes[c, :n, 5] = low[:n] if c >= 3 else low[8 * c:8 * c + n]
+    return lanes.reshape(-1) << np.uint64(1)
+
+
+def _synthetic_slab(rng, groups):
+    """A D2 input slab built 32 rows (one step) at a time: a group is None
+    (every row u64::MAX), ("pool", n, p) (n rows per column drawn in turn
+    from the column's p pool values) or ("fresh", n) (n new distinct values
+    per column, below every pool value). Values carry their column in bits
+    40 and up, so each column has its own pool. ("copies", n) is n copies
+    of one new value, below every pool value."""
+    import numpy as np
+
+    w = 2048
+    colbits = np.arange(w, dtype=np.uint64)[None, :] << np.uint64(40)
+    out = np.full((len(groups) * 32, w), np.uint64(2**64 - 1),
+                  dtype=np.uint64)
+    drawn = fresh = 0
+    for g, spec in enumerate(groups):
+        if spec is None:
+            continue
+        n = spec[1]
+        if spec[0] == "pool":
+            idx = (drawn + np.arange(n)) % spec[2]
+            vals = np.uint64(1 << 20) + idx.astype(np.uint64)
+            drawn += n
+        elif spec[0] == "fresh":
+            vals = np.uint64(1 + fresh) + np.arange(n, dtype=np.uint64)
+            fresh += n
+        else:
+            vals = np.full(n, np.uint64(1 + fresh), dtype=np.uint64)
+            fresh += 1
+        pick = np.argsort(rng.random((32, w)), axis=0)[:n]
+        block = out[g * 32:(g + 1) * 32]
+        np.put_along_axis(block, pick, colbits + vals[:, None], axis=0)
+    return out.reshape(-1).view(np.int64)
+
+
+def _d2_synthetic(ngroups: int) -> dict:
+    """The D2 edge cases over ngroups steps: (groups, d2ovf)."""
+    return {
+        # u64::MAX groups between real ones, the last step empty; every
+        # fourth step holds 3 copies of each of 8 values already held
+        "max_groups": ([("pool", 12, 30), None, None, ("pool", 24, 8)]
+                       * (ngroups // 4 - 1) + [("pool", 8, 30), None,
+                                               ("pool", 4, 30), None], 0),
+        # 70 heads early, no step past row 95; the last step's 32 fresh
+        # values push the largest heads out
+        "ovf_last": ([("pool", 20, 70)] * (ngroups - 1) + [("fresh", 32)],
+                     1),
+        # 96 heads after three steps: the fourth, the earliest step that
+        # can, overflows, and every later one
+        "ovf_earliest": ([("fresh", 32)] * ngroups, 1),
+        # 85 heads, then two steps of 8 copies: neither step reaches row
+        # 96, though one pass over both would
+        "near_full": ([("pool", 30, 85)] * 3 + [None] * (ngroups - 8)
+                      + [("copies", 8)] * 2 + [None] * 3, 0),
+    }
+
+
 def phase_kernels(seed: int, card: dict) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     import numpy as np
@@ -343,6 +452,12 @@ def phase_kernels(seed: int, card: dict) -> dict:
     rows = {}
 
     # ---- extract, unweighted and weighted ----
+    def kmers(k, n):  # uniform lanes of k-mers, padding at the end
+        out = ((pk[:n] % np.uint64(4 ** k)) << np.uint64(1)) | rc[:n]
+        out[-1000:] = np.uint64(2**64 - 1)
+        return out
+
+    b32 = 1 << 25  # sketch_step's largest batch: 512 chunks
     ex_cases = [
         ("uniform_warm", K_MAIN, 0, v, warm, False, None),
         # the engines' default batch (sketch_stream batch_size=2M)
@@ -353,6 +468,29 @@ def phase_kernels(seed: int, card: dict) -> dict:
          (rng.integers(0, 4 ** 28, size=extract.CHUNK, dtype=np.uint64)
           << np.uint64(1)) | rc[:extract.CHUNK], int(0.3 * 2**64), False,
          None),
+    ]
+    # the 4-base word assembly and the murmur tail (K mod 16 = 4, 5, 0, 1,
+    # 9), at 4M and 2M
+    for kk in (4, 5, 16, 17, 25):
+        ex_cases += [(f"uniform_warm_k{kk}", kk, 0, kmers(kk, b), warm,
+                      False, None),
+                     (f"uniform_warm_k{kk}_2M", kk, 0, kmers(kk, b // 2),
+                      warm, False, None)]
+    # 1, 3 and 5 chunks: a merge step past the slab's end
+    for nch in (1, 3, 5):
+        ex_cases.append((f"chunks_{nch}", K_MAIN, 0,
+                         v[:nch * extract.CHUNK], int(0.3 * 2**64), False,
+                         None))
+    # one column with exactly 32 / 33 real slab entries over 5 chunks,
+    # equal values within and across merge steps
+    for case, counts in EDGE_COUNTS.items():
+        aovf = int(sum(counts) > 32)
+        for n, tag in ((b, ""), (b // 2, "_2M")):
+            ex_cases.append((f"{case}{tag}", K_MAIN, 0,
+                             _edge_column(rng, n, counts), 2**63, False,
+                             (0, aovf)))
+    ex_cases += [
+        ("uniform_warm_32M", K_MAIN, 0, None, warm, False, None),
         ("uniform_warm", K_MAIN, 0, v, warm, True, (0, 0)),
         ("uniform_warm_2M", K_MAIN, 0, v[:b // 2], warm, True, (0, 0)),
         # the weighted accumulator absorbs the stride-aligned copies:
@@ -367,6 +505,9 @@ def phase_kernels(seed: int, card: dict) -> dict:
     ]
     for name, k, s, lanes, th, weighted, flags_want in ex_cases:
         kernel = "extract_weighted" if weighted else "extract"
+        if lanes is None:  # 32M lanes, made when needed
+            lanes = ((rng.integers(0, 4 ** K_MAIN, size=b32, dtype=np.uint64)
+                      << np.uint64(1)) | np.uint64(1))
         vlo, vhi = _planes(lanes, dev)
         tt = torch.tensor([u64.to_i64(th)], device=dev)
         got = extract.extract_candidates(vlo, vhi, tt, k=k, seed=s,
@@ -394,7 +535,8 @@ def phase_kernels(seed: int, card: dict) -> dict:
             lambda: extract.extract_candidates_plain(
                 vlo, vhi, tt, k=k, seed=s, weighted=weighted),
             ops, extract_bytes(n), card,
-            f"b={n} k={k} seed={s} covf,aovf={flags} kept={kept}")
+            f"b={n} k={k} seed={s} covf,aovf={flags} kept={kept} grids "
+            f"[{launch_grids(kernel, n)}]")
         if (kernel, name) in (("extract", "uniform_warm"),
                               ("extract_weighted", "dup64_stride")):
             rows[kernel] = row
@@ -432,7 +574,7 @@ def phase_kernels(seed: int, card: dict) -> dict:
                                                  k=K_MAIN),
             dedup_int_ops(n, kept, heads), dedup_bytes(n), card,
             f"b={n} covf,dovf={(int(ex[4]), int(got[1]))} kept={kept} "
-            f"heads={heads}")
+            f"heads={heads} grid [{launch_grids('dedup', n)}]")
         if name == "cold_dup64_stride":
             rows["dedup"] = row
 
@@ -446,28 +588,46 @@ def phase_kernels(seed: int, card: dict) -> dict:
          (0, 1, 1)),
         ("column_flood_2M", _column_flood(rng, b // 2, dup_warm), dup_warm,
          (0, 1, 1)),
+        # 128 steps, far past the shared-memory ring's 16
+        ("dup_shuffle_32M", None, dup_warm, None),
     ]
+    # synthetic slabs: u64::MAX groups between real ones, an overflow on
+    # the last step only, and one from the earliest step that can
+    for n, tag in ((b, ""), (b // 2, "_2M")):
+        for case, (groups, ovf) in _d2_synthetic(n // (4 * extract.CHUNK)
+                                                 ).items():
+            d2_cases.append((f"{case}{tag}", groups, None, (ovf,)))
     for name, lanes, th, flags_want in d2_cases:
-        vlo, vhi = _planes(lanes, dev)
-        tt = torch.tensor([u64.to_i64(th)], device=dev)
-        ex = extract.extract_candidates(vlo, vhi, tt, k=K_MAIN, seed=0)
-        slab = ex[1]
+        if isinstance(lanes, list):  # a synthetic slab, no extract
+            slab = torch.from_numpy(_synthetic_slab(rng, lanes)).to(dev)
+            n = slab.shape[0] * 4
+            flags_pre = ()
+        else:
+            if lanes is None:  # the shuffled burst at 32M, made when needed
+                lanes = np.tile(v[:b // 64], 8 * 64)
+                lanes = lanes[rng.permutation(lanes.shape[0])]
+            vlo, vhi = _planes(lanes, dev)
+            tt = torch.tensor([u64.to_i64(th)], device=dev)
+            ex = extract.extract_candidates(vlo, vhi, tt, k=K_MAIN, seed=0)
+            slab = ex[1]
+            n = lanes.shape[0]
+            flags_pre = (int(ex[4]), int(ex[5]))
         got = dedup.dedup_slab_candidates(slab, k=K_MAIN)
         torch.cuda.synchronize()
         want = dedup.dedup_slab_candidates_plain(slab, k=K_MAIN)
         _require_equal("dedup_slab", name, got, want, ("cand", "d2ovf"))
-        flags = (int(ex[4]), int(ex[5]), int(got[1]))
-        _require_flags("dedup_slab", name, flags, flags_want)
+        flags = (*flags_pre, int(got[1]))
+        if flags_want is not None:
+            _require_flags("dedup_slab", name, flags, flags_want)
         slab_real = int((slab != u64.MAX).sum())
         heads = int((want[0] != u64.MAX).sum())
-        n = lanes.shape[0]
         row = _measure(
             "dedup_slab", name,
             lambda: dedup.dedup_slab_candidates(slab, k=K_MAIN),
             lambda: dedup.dedup_slab_candidates_plain(slab, k=K_MAIN),
             dedup_slab_int_ops(n, slab_real, heads), dedup_slab_bytes(n),
-            card, f"b={n} covf,aovf,d2ovf={flags} slab_real={slab_real} "
-            f"heads={heads}")
+            card, f"b={n} flags={flags} slab_real={slab_real} "
+            f"heads={heads} grid [{launch_grids('dedup_slab', n)}]")
         if name == "dup_shuffle":
             rows["dedup_slab"] = row
     for row in rows.values():
@@ -863,9 +1023,15 @@ def profile_torch_run(fn) -> None:
         return
     log(f"[profile] torch run under the profiler: wall {wall:.3f} s, device "
         f"busy {total / 1e6:.3f} s ({100 * total / 1e6 / wall:.1f}% of wall)")
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
+    top = sorted(events, key=dev_us, reverse=True)
+    for e in top[:8]:
         log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6} "
             f"{e.key[:90]}")
+    # the port's own kernels, wherever they rank
+    for e in top[8:]:
+        if any(n in e.key for n in LAUNCH_NAMES):
+            log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6} "
+                f"{e.key[:90]}")
 
 
 def main(argv=None) -> int:

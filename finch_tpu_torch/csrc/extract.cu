@@ -17,35 +17,61 @@
 //     column, written x + ((count - 1) << (2k + 2)); flags[1] |= more than
 //     32 distinct values, or a kept count - 1 too wide for the weight field.
 //
-// What bounds it on the H100: about a dozen 64x64-bit multiplies plus the
-// ASCII word assembly per lane against 16 bytes of lane traffic. At its
-// fewest instructions the function is just memory-bound at k=21, but the
-// per-base word assembly below doubles the integer instructions, so the
-// INT32 issue rate is what limits this kernel. The design keeps every
-// intermediate in registers: one thread owns one (chunk, column) and walks
-// its 32 rows, so loads and hash-plane stores are coalesced along CHUNK_W
-// and the 8-entry insertion list never leaves registers. GPU blocks run in
-// no order, so the
-// TPU's sequential cross-chunk accumulator becomes a second launch: one
-// thread per column walks nchunks * 8 slab entries and keeps the 32
-// smallest in a register insertion list (weighted: the 32 smallest distinct
-// values, each with its count in a second register list).
+// What bounds it on the H100: bytes. The function reads 8 B and writes
+// 8 B of hash planes per lane, plus 2 B of slab; at its fewest integer
+// instructions (about 115 per lane at k=21) it is memory-bound at every k
+// (chip_smoke.py prices both bounds). The design follows that:
+//
+//   extract_select, grid (CHUNK_W / 128, nchunks): one thread owns one
+//     (chunk, column), loads its 32 rows 8 at a time (loads coalesced along
+//     CHUNK_W, 64 B in flight per thread), hashes them and keeps its 8
+//     smallest survivors in a register insertion list, entered only by a
+//     warp with a survivor (a vote, so that the list is a branch and not
+//     predicated work in every lane); nothing but the slab and the hash
+//     planes touches device memory. The ASCII words are
+//     assembled 4 bases per byte permute: the k-mer is bit-reversed once,
+//     so base j's code sits at bits 2j..2j+1 (its two bits swapped), each
+//     16 bits of codes are spread into 8 selector nibbles, and two PRMTs
+//     from the table "AGCT" (the swapped codes' letters) give 8 bytes.
+//   extract_warp_merge, grid CHUNK_W / 8 (256 blocks of 8 warps): GPU
+//     blocks run in no order, so the TPU's sequential cross-chunk
+//     accumulator becomes a second launch over the slab, which the select
+//     launch has just written into L2. One warp owns one column and keeps
+//     its 32 smallest entries sorted across the lanes (one per lane). The
+//     block streams its 8 columns' slab rows through a shared-memory ring
+//     (warp.cuh), 32 rows per step; a step whose values are all at least
+//     the running 32nd smallest (one ballot) is skipped, the usual case.
+//     Up to INSERT_MAX entering values are inserted one at a time (a
+//     broadcast and a one-lane shift each); more are sorted across the
+//     warp, the half-cleaner min(run[l], new[31 - l]) keeps the 32
+//     smallest as a bitonic sequence and a 5-stage bitonic merge sorts it
+//     (the TPU kernel's own merge, pallas_extract.py:323-402).
+//   extract_merge_weighted, grid CHUNK_W / 128: one thread per column walks
+//     nchunks * 8 slab entries and keeps the 32 smallest distinct values
+//     with their counts in register lists.
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp.cuh"
+
 namespace {
 
 constexpr int COLH = 32;
 constexpr int ROWS_OUT = 8;
 constexpr int ROW_BITS = 5;
-constexpr int CHUNK_W = 2048;
 constexpr int ACC_H = 32;
 constexpr int SELECT_THREADS = 128;  // columns per block, select launch
-constexpr int MERGE_THREADS = 128;   // columns per block, merge launch
-constexpr uint64_t U64_MAX = ~0ull;
+constexpr int SELECT_BATCH = 8;      // rows loaded ahead, select launch
+constexpr int MERGE_THREADS = 128;   // columns per block, weighted merge
+constexpr int INSERT_MAX = 6;  // entering values merged by insertion
+// ASCII of the bit-swapped 2-bit codes 0..3 (A=0 C=1 G=2 T=3 swapped:
+// 0 -> A, 1 -> G, 2 -> C, 3 -> T), little-endian
+constexpr uint32_t SWAPPED_ACGT = 0x54434741u;
+
+static_assert(ACC_H == STEP_ROWS, "the merge keeps one entry per lane");
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
   return (x << r) | (x >> (64 - r));
@@ -60,6 +86,23 @@ __device__ __forceinline__ uint64_t fmix64(uint64_t k) {
   return k;
 }
 
+// The 8 ASCII bytes of bases 8w..8w+7 from r = the bit-reversed k-mer
+// (base j's swapped code at bits 2j..2j+1), zero past base K - 1.
+template <int K>
+__device__ __forceinline__ uint64_t ascii_word(uint64_t r, int w) {
+  if (8 * w >= K) return 0;
+  const uint32_t half = w & 2 ? uint32_t(r >> 32) : uint32_t(r);
+  // the word's 16 code bits: bases 0-3 to byte 0, bases 4-7 to byte 2
+  uint32_t x = __byte_perm(half, 0, w & 1 ? 0x4342 : 0x4140);
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;  // base i's code in selector nibble i
+  const uint64_t word =
+      __byte_perm(SWAPPED_ACGT, 0, x) |
+      (uint64_t(__byte_perm(SWAPPED_ACGT, 0, x >> 16)) << 32);
+  const int n = K - 8 * w;  // bases in this word
+  return n >= 8 ? word : word & ((1ull << (8 * n)) - 1);
+}
+
 // murmur3_x64_128 h1 over the K ASCII bases of a 2-bit packed k-mer (base 0
 // in the most significant position; A=0 C=1 G=2 T=3), assembled straight
 // into little-endian 64-bit words. Mirrors fn_murmur3_x64_128 over the
@@ -70,15 +113,10 @@ __device__ __forceinline__ uint64_t murmur_packed(uint64_t packed,
   constexpr int NB = K / 16;
   constexpr int T = K & 15;
   constexpr int NW = 2 * ((K + 15) / 16);
+  const uint64_t r = __brevll(packed << (64 - 2 * K));
   uint64_t words[NW];
 #pragma unroll
-  for (int w = 0; w < NW; ++w) words[w] = 0;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const uint32_t code = uint32_t(packed >> (2 * (K - 1 - j))) & 3u;
-    const uint64_t byte = (0x54474341u >> (code << 3)) & 0xFFu;
-    words[j >> 3] |= byte << (8 * (j & 7));
-  }
+  for (int w = 0; w < NW; ++w) words[w] = ascii_word<K>(r, w);
   const uint64_t c1 = 0x87c37b91114253d5ULL;
   const uint64_t c2 = 0x4cf5ad432745937fULL;
   uint64_t h1 = seed, h2 = seed;
@@ -135,19 +173,28 @@ extract_select(const uint32_t* __restrict__ vlo,
 #pragma unroll
   for (int r = 0; r < ROWS_OUT; ++r) top[r] = U64_MAX;
   int kept = 0;
-#pragma unroll 4
-  for (int r = 0; r < COLH; ++r) {
-    const int64_t lane = (chunk * COLH + r) * CHUNK_W + col;
-    const uint32_t lo = vlo[lane];
-    const uint32_t hi = vhi[lane];
-    const uint64_t v = (uint64_t(hi) << 32) | lo;
-    const uint64_t h = murmur_packed<K>(v >> 1, seed);
-    hash_lo[lane] = uint32_t(h);
-    hash_hi[lane] = uint32_t(h >> 32);
-    const bool pad = (lo == 0xFFFFFFFFu) && (hi == 0xFFFFFFFFu);
-    if (!pad && h <= th) {
-      ++kept;
-      insert_sorted(top, (v << ROW_BITS) | uint64_t(r));
+  for (int r0 = 0; r0 < COLH; r0 += SELECT_BATCH) {
+    uint32_t lo[SELECT_BATCH], hi[SELECT_BATCH];
+#pragma unroll
+    for (int i = 0; i < SELECT_BATCH; ++i) {
+      const int64_t lane = (chunk * COLH + r0 + i) * CHUNK_W + col;
+      lo[i] = vlo[lane];
+      hi[i] = vhi[lane];
+    }
+#pragma unroll
+    for (int i = 0; i < SELECT_BATCH; ++i) {
+      const int64_t lane = (chunk * COLH + r0 + i) * CHUNK_W + col;
+      const uint64_t v = (uint64_t(hi[i]) << 32) | lo[i];
+      const uint64_t h = murmur_packed<K>(v >> 1, seed);
+      hash_lo[lane] = uint32_t(h);
+      hash_hi[lane] = uint32_t(h >> 32);
+      const bool pad = (lo[i] == 0xFFFFFFFFu) && (hi[i] == 0xFFFFFFFFu);
+      const bool keep = !pad && h <= th;
+      // a branch, not predication: few lanes survive a warm threshold
+      if (__ballot_sync(FULL, keep) != 0 && keep) {
+        ++kept;
+        insert_sorted(top, (v << ROW_BITS) | uint64_t(r0 + i));
+      }
     }
   }
   if (kept > ROWS_OUT) atomicOr(&flags[0], 1);
@@ -159,25 +206,48 @@ extract_select(const uint32_t* __restrict__ vlo,
   }
 }
 
-// Launch 2: grid CHUNK_W / MERGE_THREADS. Thread = column over all chunks.
-__global__ void __launch_bounds__(MERGE_THREADS)
-extract_merge(const uint64_t* __restrict__ slab, int64_t nchunks,
-              uint64_t* __restrict__ cand, int32_t* __restrict__ flags) {
-  const int64_t col = int64_t(blockIdx.x) * MERGE_THREADS + threadIdx.x;
-  uint64_t acc[ACC_H];
-#pragma unroll
-  for (int r = 0; r < ACC_H; ++r) acc[r] = U64_MAX;
+// Launch 2: grid CHUNK_W / WARPS, block WARPS warps; warp w of block b
+// owns column b * WARPS + w and keeps its 32 smallest slab entries so far,
+// ascending across the lanes.
+__global__ void __launch_bounds__(BLOCK)
+extract_warp_merge(const uint64_t* __restrict__ slab, int64_t nchunks,
+                   uint64_t* __restrict__ cand, int32_t* __restrict__ flags) {
+  __shared__ StripeRing ring;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t col0 = int64_t(blockIdx.x) * WARPS;
+  uint64_t run = U64_MAX;   // the (lane)-th smallest so far
+  uint64_t top = U64_MAX;   // the 32nd smallest so far, in every lane
   int64_t real = 0;
-  const int64_t rows = nchunks * ROWS_OUT;
-  for (int64_t row = 0; row < rows; ++row) {
-    const uint64_t x = slab[row * CHUNK_W + col];
-    if (x == U64_MAX) continue;
-    ++real;
-    insert_sorted(acc, x);
-  }
-  if (real > ACC_H) atomicOr(&flags[1], 1);
+  walk_stripe(ring, slab, nchunks * ROWS_OUT, col0, [&](uint64_t x, bool) {
+    real += __popc(__ballot_sync(FULL, x != U64_MAX));
+    const unsigned enter = __ballot_sync(FULL, x < top);
+    if (enter == 0) return;  // nothing enters: the usual step
+    if (__popc(enter) <= INSERT_MAX) {
+      // a few values: insert each, shifting the larger entries up a lane
+      for (unsigned rest = enter; rest; rest &= rest - 1) {
+        const uint64_t y = __shfl_sync(FULL, x, __ffs(rest) - 1);
+        const uint64_t below = __shfl_up_sync(FULL, run, 1);
+        if (run > y) run = (lane > 0 && below > y) ? below : y;
+      }
+    } else {
+      const uint64_t s = warp_sort(x, lane);
+      const uint64_t t = __shfl_sync(FULL, s, 31 - lane);
+      run = t < run ? t : run;  // the 32 smallest of both, bitonic
 #pragma unroll
-  for (int r = 0; r < ACC_H; ++r) cand[int64_t(r) * CHUNK_W + col] = acc[r];
+      for (int d = 16; d > 0; d >>= 1) {
+        const uint64_t y = __shfl_xor_sync(FULL, run, d);
+        const bool low = (lane & d) == 0;
+        run = (low == (run < y)) ? run : y;
+      }
+    }
+    top = __shfl_sync(FULL, run, 31);
+  });
+  if (lane == 0 && real > ACC_H) atomicOr(&flags[1], 1);
+  uint64_t(*out)[TILE_PAD] = out_tile(ring);
+  out[lane][warp] = run;
+  __syncthreads();
+  store_tile<ACC_H>(out, cand, col0);
 }
 
 // Launch 2, weighted form: grid CHUNK_W / MERGE_THREADS, thread = column.
@@ -265,6 +335,8 @@ extern "C" int finch_extract(const void* vlo_p, const void* vhi_p,
   int32_t* fl = static_cast<int32_t*>(flags_p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nchunks < 1 || nchunks > 65535) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(fl, 0, 2 * sizeof(int32_t), s);
+  if (err != cudaSuccess) return int(err);
   const dim3 grid(CHUNK_W / SELECT_THREADS, unsigned(nchunks));
   switch (k) {
     FINCH_EXTRACT_CASE(1) FINCH_EXTRACT_CASE(2) FINCH_EXTRACT_CASE(3)
@@ -280,13 +352,13 @@ extern "C" int finch_extract(const void* vlo_p, const void* vhi_p,
     default:
       return int(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   if (weighted)
     extract_merge_weighted<<<CHUNK_W / MERGE_THREADS, MERGE_THREADS, 0, s>>>(
         sl, nchunks, 2 * k + 2, static_cast<uint64_t*>(cand_p), fl);
   else
-    extract_merge<<<CHUNK_W / MERGE_THREADS, MERGE_THREADS, 0, s>>>(
+    extract_warp_merge<<<CHUNK_W / WARPS, BLOCK, 0, s>>>(
         sl, nchunks, static_cast<uint64_t*>(cand_p), fl);
   return int(cudaGetLastError());
 }

@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``csrc/_build/`` (listed in
-``.gitignore``), keyed by a hash of the source so that an edit rebuilds and
-an unchanged source is reused. The wrappers in ``ops/`` load it with
+``.gitignore``), keyed by a hash of the source and of the headers beside it
+(``csrc/*.cuh``) so that an edit rebuilds and an unchanged source is
+reused. The wrappers in ``ops/`` load it with
 ctypes. Nothing here runs when a module is imported: machines without the
 CUDA toolkit import every module and use the plain PyTorch versions.
 """
@@ -11,11 +12,14 @@ CUDA toolkit import every module and use the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 from finch_tpu_torch.errors import FinchMessageError
 
@@ -28,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+_fns: dict = {}
 
 
 def nvcc() -> str:
@@ -48,8 +53,11 @@ def build(name: str) -> tuple[str, str]:
     ptxas' registers, shared memory and spills per kernel; it is empty when
     the cached library is reused."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    sha = hashlib.sha256()
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            sha.update(f.read())
+    digest = sha.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(so_path):
@@ -64,15 +72,33 @@ def build(name: str) -> tuple[str, str]:
     return so_path, proc.stdout + proc.stderr
 
 
-def load(name: str, declare) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, loaded once; `declare(lib)`
-    sets the argument and result types of its functions."""
-    lib = _libs.get(name)
-    if lib is None:
+def function(name: str, fn: str, declare):
+    """The ctypes function `fn` of csrc/<name>.cu. The library is built and
+    loaded once (`declare(lib)` sets its functions' argument and result
+    types) and the function resolved once."""
+    f = _fns.get((name, fn))
+    if f is None:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
                 lib = ctypes.CDLL(build(name)[0])
                 declare(lib)
                 _libs[name] = lib
-    return lib
+            f = _fns[(name, fn)] = getattr(lib, fn)
+    return f
+
+
+def launch(fn, dev: torch.device, *args) -> int:
+    """Call the launcher `fn(*args, stream)` on `dev`'s current stream,
+    switching the current device only when `dev` is not it. Returns the
+    launcher's CUDA error code."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, _stream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, _stream(dev))
+
+
+def _stream(dev: torch.device) -> int:
+    # the raw handle in one call (torch.cuda.current_stream builds a Stream
+    # object first)
+    return torch._C._cuda_getCurrentRawStream(dev.index)

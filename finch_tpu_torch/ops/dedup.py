@@ -85,15 +85,14 @@ def _device(*ts) -> torch.device:
 
 
 def _launch(name: str, dev, *args) -> tuple[torch.Tensor, torch.Tensor]:
+    # two allocations: cheaper on the host than one split into views
     cand = torch.empty(DUP_ACC_H * CHUNK_W, dtype=torch.int64, device=dev)
-    flags = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = getattr(cuda_lib.load("dedup", _declare), name)
-        err = fn(*args, cand.data_ptr(), flags.data_ptr(), stream)
+    flag = torch.empty((), dtype=torch.int32, device=dev)
+    err = cuda_lib.launch(cuda_lib.function("dedup", name, _declare), dev,
+                          *args, cand.data_ptr(), flag.data_ptr())
     if err != 0:
         raise FinchMessageError(f"{name} launch failed: CUDA error {err}")
-    return cand, flags[0]
+    return cand, flag
 
 
 def dedup_candidates(vlo, vhi, hash_lo, hash_hi, thresh, *, k: int):
@@ -117,7 +116,6 @@ def dedup_candidates(vlo, vhi, hash_lo, hash_hi, thresh, *, k: int):
     if dev.type == "cpu":
         return dedup_candidates_plain(vlo, vhi, hash_lo, hash_hi, thresh,
                                       k=k)
-    thresh = thresh.reshape(1).contiguous()
     out = _launch("finch_dedup", dev, *(t.data_ptr() for t in planes),
                   thresh.data_ptr(), b // CHUNK, 2 * k + 2)
     dedup_candidates.launches += 1

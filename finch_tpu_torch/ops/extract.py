@@ -43,24 +43,26 @@ Outputs: cand int64[32*2048], slab int64[b/4], hash_lo/hash_hi int32[b]
 (u32 bits), covf/aovf int32 scalars. All u64 values are int64 bit patterns
 (``finch_tpu_torch.u64``).
 
-What bounds the kernel on the H100, and what the design does about it: the
-work per lane is a 64-bit integer hash (about a dozen 64x64-bit multiplies,
-each several INT32 instructions) plus the ASCII word assembly, against
-8 bytes read and 8 bytes of hash planes written. At its fewest
-instructions (a byte permute assembles four ASCII bases) the function is
-just memory-bound at k=21; this kernel issues about twice that many
-integer instructions (it assembles the ASCII one base at a time), so the
-INT32 issue rate is what limits it (PERF.md gives both bounds at the main
-path's 4M-lane batch). The design keeps every intermediate in registers: one
-thread owns one (chunk, column), walks its 32 rows with loads and hash
-stores coalesced along CHUNK_W, and keeps its 8 smallest survivors in a
-register insertion list, so nothing but the slab and hash planes touches
-device memory. The cross-chunk accumulator cannot live in one block's
-scratch across a sequential grid as on the TPU (GPU blocks run in no
-order), so a second launch walks each column's nchunks*8 slab entries and
-keeps the 32 smallest (weighted: the 32 smallest distinct, with counts) in
-registers. Tuning (more threads per column, fewer integer instructions in
-the word assembly) is later work.
+What bounds the kernel on the H100, and what the design does about it:
+bytes. Per lane the function reads 8 bytes of lane planes and writes 8
+bytes of hash planes (plus 2 bytes of slab); at its fewest integer
+instructions (about 115 per lane at k=21, a byte permute assembling four
+ASCII bases) it is memory-bound (``chip_smoke.py`` prices both bounds).
+So the kernel keeps every intermediate out of device memory and keeps
+every SM busy. Launch 1 (``extract_select``, one thread per (chunk,
+column)) loads its 32 lanes 8 at a time, hashes them with the ASCII words
+assembled by byte permutes, and keeps its 8 smallest survivors in a
+register insertion list: only the slab and the hash planes are written.
+GPU blocks run in no order, so the TPU's sequential cross-chunk
+accumulator is launch 2 over the slab, which sits in L2 after launch 1.
+Unweighted (``extract_warp_merge``, 256 blocks of 8 warps), one warp owns
+one column and keeps its 32 smallest entries sorted across the lanes; the
+block streams its 8 columns' slab rows through a shared-memory ring, 32
+rows a step; a step in which no value is below the running 32nd smallest
+is skipped with one ballot, and any other is sorted across the warp and
+merged by a half-cleaner and a bitonic merge (the TPU kernel's own merge).
+Weighted (``extract_merge_weighted``), one thread per column keeps the 32
+smallest distinct values with counts in registers (not yet redesigned).
 """
 
 from __future__ import annotations
@@ -140,21 +142,18 @@ def extract_candidates(vlo: torch.Tensor, vhi: torch.Tensor,
             f"extract runs on cuda or cpu tensors, not {vlo.device}")
     b = vlo.shape[0]
     nchunks = b // CHUNK
-    dev = vlo.device
-    cand = torch.empty(ACC_H * CHUNK_W, dtype=torch.int64, device=dev)
-    slab = torch.empty(nchunks * ROWS_OUT * CHUNK_W, dtype=torch.int64,
-                       device=dev)
-    h_lo = torch.empty(b, dtype=torch.int32, device=dev)
-    h_hi = torch.empty(b, dtype=torch.int32, device=dev)
-    flags = torch.zeros(2, dtype=torch.int32, device=dev)
-    thresh = thresh.reshape(1).contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = cuda_lib.load("extract", _declare).finch_extract(
-            vlo.data_ptr(), vhi.data_ptr(), thresh.data_ptr(),
-            cand.data_ptr(), slab.data_ptr(), h_lo.data_ptr(),
-            h_hi.data_ptr(), flags.data_ptr(), nchunks, k,
-            u64.to_u64(seed), int(weighted), stream)
+    nslab = nchunks * ROWS_OUT * CHUNK_W
+    # one allocation: cand, the slab, then the hash planes and the two
+    # flags as int32 words
+    buf = torch.empty(ACC_H * CHUNK_W + nslab + b + 1, dtype=torch.int64,
+                      device=vlo.device)
+    cand, slab, words = buf.split([ACC_H * CHUNK_W, nslab, b + 1])
+    h_lo, h_hi, flags = words.view(torch.int32).split([b, b, 2])
+    err = cuda_lib.launch(
+        cuda_lib.function("extract", "finch_extract", _declare), vlo.device,
+        vlo.data_ptr(), vhi.data_ptr(), thresh.data_ptr(), cand.data_ptr(),
+        slab.data_ptr(), h_lo.data_ptr(), h_hi.data_ptr(), flags.data_ptr(),
+        nchunks, k, u64.to_u64(seed), int(weighted))
     if err != 0:
         raise FinchMessageError(f"extract kernel launch failed: CUDA error "
                                 f"{err}")
@@ -162,7 +161,8 @@ def extract_candidates(vlo: torch.Tensor, vhi: torch.Tensor,
         extract_candidates.launches_weighted += 1
     else:
         extract_candidates.launches += 1
-    return cand, slab, h_lo, h_hi, flags[0], flags[1]
+    covf, aovf = flags.unbind()
+    return cand, slab, h_lo, h_hi, covf, aovf
 
 
 extract_candidates.launches = 0

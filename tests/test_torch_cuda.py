@@ -6,7 +6,8 @@ run them on the GPU with
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py` (the
 repository's conftest imports JAX, which the GPU machine need not have).
 chip_smoke.py holds the kernel against the plain version at the main
-path's shapes as well."""
+path's shapes as well. The input builders below take any device, so the
+same inputs can be checked on the CPU against the plain versions alone."""
 
 import numpy as np
 import pytest
@@ -14,8 +15,11 @@ import torch
 
 from finch_tpu_torch import u64
 from finch_tpu_torch.ops import dedup, extract
+from finch_tpu_torch.ops.murmur3 import hash_packed_kmers
 
 pytestmark = pytest.mark.cuda
+
+MAX = np.uint64(2**64 - 1)
 
 
 @pytest.fixture
@@ -25,19 +29,66 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k,seed,nch,frac", [(21, 0, 4, 0.004),
-                                             (28, 42, 1, 1.0),
-                                             (1, 0, 2, 0.5)])
-def test_kernel_matches_plain(cuda, k, seed, nch, frac):
-    rng = np.random.default_rng(k)
+def _planes(v, dev):
+    return (u64.from_numpy((v & np.uint64(0xFFFFFFFF)).astype(np.uint32), dev),
+            u64.from_numpy((v >> np.uint64(32)).astype(np.uint32), dev))
+
+
+def _thresh(dev, frac):
+    return torch.tensor([u64.to_i64(min(int(frac * 2**64), 2**64 - 1))],
+                        device=dev)
+
+
+def _random_lanes(k, nch, seed):
+    rng = np.random.default_rng(seed + k)
     b = nch * extract.CHUNK
     v = ((rng.integers(0, 4 ** k, size=b, dtype=np.uint64) << np.uint64(1))
          | rng.integers(0, 2, size=b, dtype=np.uint64))
-    v[rng.random(b) < 0.03] = np.uint64(2**64 - 1)
-    vlo = u64.from_numpy((v & np.uint64(0xFFFFFFFF)).astype(np.uint32), cuda)
-    vhi = u64.from_numpy((v >> np.uint64(32)).astype(np.uint32), cuda)
-    th = torch.tensor([u64.to_i64(min(int(frac * 2**64), 2**64 - 1))],
-                      device=cuda)
+    v[rng.random(b) < 0.03] = MAX
+    return v
+
+
+def _split_by_hash(rng, k, n, th):
+    """n random distinct packed k-mers hashing <= th, and n hashing > th."""
+    pool = np.unique(rng.integers(0, 4 ** k, size=8 * n, dtype=np.uint64))
+    h = u64.to_numpy(hash_packed_kmers(u64.from_numpy(pool), k=k, seed=0))
+    low, high = pool[h <= np.uint64(th)], pool[h > np.uint64(th)]
+    assert len(low) >= n and len(high) >= n
+    return low[:n], high[:n]
+
+
+# survivors per chunk of the edge column: 32 real slab entries over 5
+# chunks (aovf 0) and 33 (aovf 1)
+EDGE_COUNTS = {"exactly_32": (8, 8, 8, 4, 4), "just_33": (8, 8, 8, 8, 1)}
+
+
+def edge_lanes(counts, seed=0):
+    """Lanes in which only column 5 has survivors (threshold half the hash
+    space): counts[c] of them in chunk c, rows 0..counts[c]-1. Chunk 3's
+    and chunk 4's survivors repeat chunk 0's first k-mers, so equal slab
+    values sit within one merge step (chunks 0-3) and across two (chunk
+    4). Returns (lanes, threshold)."""
+    k, th = 21, 2**63
+    rng = np.random.default_rng(seed)
+    nch = len(counts)
+    low, high = _split_by_hash(rng, k, 4096, th)
+    lanes = high[rng.integers(0, len(high), size=nch * extract.CHUNK)]
+    lanes = lanes.reshape(nch, extract.COLH, extract.CHUNK_W)
+    for c, n in enumerate(counts):
+        lanes[c, :n, 5] = low[:n] if c >= 3 else low[8 * c:8 * c + n]
+    return (lanes.reshape(-1) << np.uint64(1)), th
+
+
+@pytest.mark.parametrize("k,seed,nch,frac", [
+    (21, 0, 4, 0.004), (28, 42, 1, 1.0), (1, 0, 2, 0.5),
+    # the 4-base word assembly and the murmur tail (T = K mod 16: 4, 5,
+    # 0, 1, 9), on 1, 3 and 5 chunks (a merge step past the slab's end)
+    (4, 0, 3, 0.5), (5, 7, 1, 0.3), (16, 0, 5, 0.01), (17, 42, 3, 0.05),
+    (25, 0, 5, 0.002),
+])
+def test_kernel_matches_plain(cuda, k, seed, nch, frac):
+    vlo, vhi = _planes(_random_lanes(k, nch, 0), cuda)
+    th = _thresh(cuda, frac)
     before = extract.extract_candidates.launches
     got = extract.extract_candidates(vlo, vhi, th, k=k, seed=seed)
     torch.cuda.synchronize()
@@ -45,6 +96,19 @@ def test_kernel_matches_plain(cuda, k, seed, nch, frac):
     want = extract.extract_candidates_plain(vlo, vhi, th, k=k, seed=seed)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case,aovf", [("exactly_32", 0), ("just_33", 1)])
+def test_kernel_column_edges(cuda, case, aovf):
+    lanes, th = edge_lanes(EDGE_COUNTS[case])
+    vlo, vhi = _planes(lanes, cuda)
+    tt = torch.tensor([u64.to_i64(th)], device=cuda)
+    got = extract.extract_candidates(vlo, vhi, tt, k=21, seed=0)
+    torch.cuda.synchronize()
+    want = extract.extract_candidates_plain(vlo, vhi, tt, k=21, seed=0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (int(got[4]), int(got[5])) == (0, aovf)
 
 
 def _lanes(cuda, k, nch, dup, shuffle, seed=0):
@@ -56,15 +120,8 @@ def _lanes(cuda, k, nch, dup, shuffle, seed=0):
     v = np.tile(v, dup)
     if shuffle:
         v = v[rng.permutation(b)]
-    v[-37:] = np.uint64(2**64 - 1)
-    return (u64.from_numpy((v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-                           cuda),
-            u64.from_numpy((v >> np.uint64(32)).astype(np.uint32), cuda))
-
-
-def _thresh(cuda, frac):
-    return torch.tensor([u64.to_i64(min(int(frac * 2**64), 2**64 - 1))],
-                        device=cuda)
+    v[-37:] = MAX
+    return _planes(v, cuda)
 
 
 @pytest.mark.parametrize("k,nch,dup,shuffle,frac", [
@@ -104,8 +161,66 @@ def test_dedup_kernel_matches_plain(cuda, k, nch, dup, shuffle, frac):
         assert torch.equal(g, w)
 
 
+def synthetic_slab(groups, seed=0):
+    """A slab (len(groups) x 32 rows of CHUNK_W columns, u64 as int64
+    numpy) built group by group. Each group is None (every row u64::MAX),
+    ("pool", n, p) (n of its 32 rows per column drawn from the column's p
+    pool values, in turn, so that the pool fills over the groups),
+    ("fresh", n) (n new distinct values per column, below every pool
+    value) or ("copies", n) (n copies of one new value, below every pool
+    value)."""
+    rng = np.random.default_rng(seed)
+    rows, w = 32, extract.CHUNK_W
+    col = np.arange(w, dtype=np.uint64)[None, :] << np.uint64(40)
+    out = np.full((len(groups) * rows, w), MAX, dtype=np.uint64)
+    drawn = 0
+    fresh = 0
+    for g, spec in enumerate(groups):
+        if spec is None:
+            continue
+        block = np.full((rows, w), MAX, dtype=np.uint64)
+        n = spec[1]
+        pick = np.argsort(rng.random((rows, w)), axis=0)[:n]
+        if spec[0] == "pool":
+            idx = (drawn + np.arange(n)) % spec[2]
+            vals = (np.uint64(1 << 20) + idx.astype(np.uint64))[:, None]
+            drawn += n
+        elif spec[0] == "fresh":
+            vals = (np.uint64(1) + fresh + np.arange(n, dtype=np.uint64))[
+                :, None]
+            fresh += n
+        else:
+            vals = np.full((n, 1), np.uint64(1 + fresh), dtype=np.uint64)
+            fresh += 1
+        np.put_along_axis(block, pick, col + vals, axis=0)
+        out[g * rows:(g + 1) * rows] = block
+    return out.reshape(-1).view(np.int64)
+
+
+# (slab groups, d2ovf)
+D2_SYNTHETIC = {
+    # u64::MAX groups between real ones, the last step empty: the output
+    # is the compacted layout, no holes; the fourth step holds 3 copies
+    # of each of 8 values already held
+    "max_groups": ([("pool", 12, 30), None, None, ("pool", 24, 8), None],
+                   0),
+    # 70 heads by the fifth step, no step over 95 rows; the last step's
+    # 32 fresh values push the largest heads past row 95
+    "ovf_last": ([("pool", 20, 70)] * 5 + [("fresh", 32)], 1),
+    # 32 fresh values a step: 96 heads after three steps, so the fourth
+    # step, the earliest that can, overflows, and every later one
+    "ovf_earliest": ([("fresh", 32)] * 6, 1),
+    # 85 heads, then two steps of 8 copies: neither step reaches row 96,
+    # though one pass over both would (16 rows below 85 heads)
+    "near_full": ([("pool", 30, 85)] * 3 + [("copies", 8)] * 2
+                  + [None] * 3, 0),
+}
+
+
 @pytest.mark.parametrize("nch,dup,shuffle,frac", [
-    (4, 4, False, 0.02), (8, 8, True, 0.05), (16, 1, False, 0.2),
+    (4, 4, False, 0.02),        # one step
+    (8, 8, True, 0.05), (16, 1, False, 0.2),
+    (96, 16, True, 0.05),       # 24 steps: longer than the ring's 16
 ])
 def test_dedup_slab_kernel_matches_plain(cuda, nch, dup, shuffle, frac):
     vlo, vhi = _lanes(cuda, 21, nch, dup, shuffle)
@@ -118,3 +233,15 @@ def test_dedup_slab_kernel_matches_plain(cuda, nch, dup, shuffle, frac):
     want = dedup.dedup_slab_candidates_plain(slab, k=21)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", sorted(D2_SYNTHETIC))
+def test_dedup_slab_kernel_edges(cuda, case):
+    groups, ovf = D2_SYNTHETIC[case]
+    slab = torch.from_numpy(synthetic_slab(groups)).to(cuda)
+    got = dedup.dedup_slab_candidates(slab, k=21)
+    torch.cuda.synchronize()
+    want = dedup.dedup_slab_candidates_plain(slab, k=21)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1]) == ovf
