@@ -232,8 +232,6 @@ def _time_ms(fn, runs: int, per_run: int) -> float:
     return statistics.median(times)
 
 
-# the kernels' names as the profiler reports them; no name is a substring
-# of another, so each profiler event matches at most one
 def _host_us(fn, calls: int = 200) -> float:
     """Host time per wrapper call, enqueueing `calls` back-to-back calls
     (fewer launches than the launch queue holds, so none waits for the
@@ -249,8 +247,11 @@ def _host_us(fn, calls: int = 200) -> float:
     return secs / calls * 1e6
 
 
+# the kernels' names as the profiler reports them; no name is a substring
+# of another, so each profiler event matches at most one
 LAUNCH_NAMES = ("extract_select", "extract_warp_merge",
-                "extract_merge_weighted", "dedup_planes", "dedup_slab_warp")
+                "extract_weighted_merge", "dedup_lanes_warp",
+                "dedup_slab_warp")
 
 
 def launch_grids(kernel: str, b: int) -> str:
@@ -259,8 +260,8 @@ def launch_grids(kernel: str, b: int) -> str:
     nch = b // (32 * 2048)
     select = f"extract_select ({2048 // 128}, {nch}) x 128"
     return {"extract": f"{select}; extract_warp_merge 256 x 256",
-            "extract_weighted": f"{select}; extract_merge_weighted 16 x 128",
-            "dedup": "dedup_planes 256 x 256",
+            "extract_weighted": f"{select}; extract_weighted_merge 256 x 256",
+            "dedup": "dedup_lanes_warp 256 x 256",
             "dedup_slab": "dedup_slab_warp 256 x 256"}[kernel]
 
 
@@ -425,6 +426,59 @@ def _d2_synthetic(ngroups: int) -> dict:
     }
 
 
+def _lanes_from_slab(rng, slab, th: int):
+    """Tier D lanes whose survivors are a synthetic slab's real entries
+    (one slab group of 32 rows per chunk): a lane is the slab value - 1
+    with a hash at or below th (a tenth of them exactly th). Any other lane
+    is padding (both planes all-ones; a third of them, half of those with
+    hashes at or below th) or a random value hashing above th (a tenth of
+    them exactly th + 1). Returns the value and hash planes as u64."""
+    import numpy as np
+
+    real = slab != np.uint64(2**64 - 1)
+    n = slab.size
+    low_h = rng.integers(0, th, size=n, dtype=np.uint64, endpoint=True)
+    low_h[rng.random(n) < 0.1] = np.uint64(th)
+    high_h = rng.integers(th + 1, 2**64 - 1, size=n, dtype=np.uint64,
+                          endpoint=True)
+    high_h[rng.random(n) < 0.1] = np.uint64(th + 1)
+    pad = ~real & (rng.random(n) < 0.3)
+    v = np.where(real, slab - np.uint64(1),
+                 rng.integers(0, 2**62, size=n, dtype=np.uint64))
+    v[pad] = np.uint64(2**64 - 1)
+    h = np.where(real | (pad & (rng.random(n) < 0.5)), low_h, high_h)
+    return v, h
+
+
+# the weighted extract's edge columns: per chunk, the survivors of column
+# 5 as indices into a sorted pool of survivors; 16 chunks (4 merge steps),
+# 8 a chunk, copies within a step and across steps: (chunks, aovf)
+WEIGHTED_EDGES = {
+    "distinct_32": ([[(5 * i + j) % 32 + 1 for j in range(8)]
+                     for i in range(16)], 0),
+    # a 33rd value, below the others, in the last chunk: the largest held
+    # value drops out with its count
+    "distinct_33": ([[(5 * i + j) % 32 + 1 for j in range(8)]
+                     for i in range(15)] + [[0] + list(range(12, 19))], 1),
+}
+
+
+def _weighted_edge(rng, b: int, chunks):
+    """Lanes with no survivor at threshold 2**63 but in column 5 of the
+    first len(chunks) chunks, as WEIGHTED_EDGES lists them."""
+    import numpy as np
+
+    from finch_tpu_torch.ops import extract
+
+    low, high = _low_high(rng, K_MAIN, 2**63, 1 << 14)
+    low = np.sort(low)
+    lanes = high[rng.integers(0, len(high), size=b)].reshape(
+        b // extract.CHUNK, extract.COLH, extract.CHUNK_W)
+    for c, idx in enumerate(chunks):
+        lanes[c, :len(idx), 5] = low[idx]
+    return lanes.reshape(-1) << np.uint64(1)
+
+
 def phase_kernels(seed: int, card: dict) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     import numpy as np
@@ -502,7 +556,14 @@ def phase_kernels(seed: int, card: dict) -> dict:
         ("distinct_flood", K_MAIN, 0, v, dup_warm, True, (0, 1)),
         ("distinct_flood_2M", K_MAIN, 0, v[:b // 2], dup_warm, True,
          (0, 1)),
+        ("uniform_warm_32M", K_MAIN, 0, None, warm, True, None),
     ]
+    # one column with exactly 32 / 33 distinct values over 16 chunks
+    for case, (chunks, aovf) in WEIGHTED_EDGES.items():
+        for n, tag in ((b, ""), (b // 2, "_2M")):
+            ex_cases.append((f"{case}{tag}", K_MAIN, 0,
+                             _weighted_edge(rng, n, chunks), 2**63, True,
+                             (0, aovf)))
     for name, k, s, lanes, th, weighted, flags_want in ex_cases:
         kernel = "extract_weighted" if weighted else "extract"
         if lanes is None:  # 32M lanes, made when needed
@@ -542,6 +603,9 @@ def phase_kernels(seed: int, card: dict) -> dict:
             rows[kernel] = row
 
     # ---- tier D: re-selection from the saved hash planes ----
+    # about 50 survivors per column in a 2M batch (1024 lanes a column):
+    # what tier D sees on the isolate run's warm steps
+    sparse = int(50 / 1024 * 2**64)
     d_cases = [
         # a cold stride-aligned burst: chunk columns overflow, D holds it
         ("cold_dup64_stride", dup64, 2**64 - 1, (1, 0)),
@@ -550,31 +614,53 @@ def phase_kernels(seed: int, card: dict) -> dict:
         # a cold uniform batch: more than 96 distinct per column
         ("cold_uniform", v, 2**64 - 1, (1, 1)),
         ("cold_uniform_2M", v[:b // 2], 2**64 - 1, (1, 1)),
+        ("sparse_warm", v, sparse, None),
+        ("sparse_warm_2M", v[:b // 2], sparse, None),
+        # 512 chunks, far past the ring's 16: each chunk the same 32
+        # values a column, 512 copies each
+        ("cold_dup_stride_32M", None, 2**64 - 1, (1, 0)),
     ]
+    # synthetic lanes, one D2 edge-case group a chunk: u64::MAX chunks
+    # between real ones, an overflow on the last step only and from the
+    # earliest step that can, 85 heads then two 8-copy steps
+    for n, tag in ((b, ""), (b // 2, "_2M")):
+        for case, (groups, ovf) in _d2_synthetic(n // extract.CHUNK).items():
+            d_cases.append((f"{case}{tag}", groups, 2**63 + 12345, (ovf,)))
     for name, lanes, th, flags_want in d_cases:
-        vlo, vhi = _planes(lanes, dev)
         tt = torch.tensor([u64.to_i64(th)], device=dev)
-        ex = extract.extract_candidates(vlo, vhi, tt, k=K_MAIN, seed=0)
-        got = dedup.dedup_candidates(vlo, vhi, ex[2], ex[3], tt, k=K_MAIN)
+        if isinstance(lanes, list):  # synthetic: the hash planes set directly
+            vv, hh = _lanes_from_slab(
+                rng, _synthetic_slab(rng, lanes).view(np.uint64), th)
+            vlo, vhi = _planes(vv, dev)
+            hlo, hhi = _planes(hh, dev)
+            flags_pre = ()
+        else:
+            if lanes is None:  # 32M lanes, made when needed
+                lanes = np.tile(v[:b // 64], 512)
+            vlo, vhi = _planes(lanes, dev)
+            ex = extract.extract_candidates(vlo, vhi, tt, k=K_MAIN, seed=0)
+            hlo, hhi = ex[2], ex[3]
+            flags_pre = (int(ex[4]),)
+        got = dedup.dedup_candidates(vlo, vhi, hlo, hhi, tt, k=K_MAIN)
         torch.cuda.synchronize()
-        want = dedup.dedup_candidates_plain(vlo, vhi, ex[2], ex[3], tt,
-                                            k=K_MAIN)
+        want = dedup.dedup_candidates_plain(vlo, vhi, hlo, hhi, tt, k=K_MAIN)
         _require_equal("dedup", name, got, want, ("cand", "dovf"))
-        _require_flags("dedup", name, (int(ex[4]), int(got[1])), flags_want)
+        flags = (*flags_pre, int(got[1]))
+        if flags_want is not None:
+            _require_flags("dedup", name, flags, flags_want)
         pad = (vlo == -1) & (vhi == -1)
-        kept = int((~pad & u64.le(u64.join(ex[2], ex[3]),
+        kept = int((~pad & u64.le(u64.join(hlo, hhi),
                                   tt.reshape(()))).sum())
         heads = int((want[0] != u64.MAX).sum())
-        n = lanes.shape[0]
+        n = vlo.shape[0]
         row = _measure(
             "dedup", name,
-            lambda: dedup.dedup_candidates(vlo, vhi, ex[2], ex[3], tt,
-                                           k=K_MAIN),
-            lambda: dedup.dedup_candidates_plain(vlo, vhi, ex[2], ex[3], tt,
+            lambda: dedup.dedup_candidates(vlo, vhi, hlo, hhi, tt, k=K_MAIN),
+            lambda: dedup.dedup_candidates_plain(vlo, vhi, hlo, hhi, tt,
                                                  k=K_MAIN),
             dedup_int_ops(n, kept, heads), dedup_bytes(n), card,
-            f"b={n} covf,dovf={(int(ex[4]), int(got[1]))} kept={kept} "
-            f"heads={heads} grid [{launch_grids('dedup', n)}]")
+            f"b={n} flags={flags} kept={kept} heads={heads} grid "
+            f"[{launch_grids('dedup', n)}]")
         if name == "cold_dup64_stride":
             rows["dedup"] = row
 

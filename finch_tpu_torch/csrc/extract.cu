@@ -46,9 +46,14 @@
 //     warp, the half-cleaner min(run[l], new[31 - l]) keeps the 32
 //     smallest as a bitonic sequence and a 5-stage bitonic merge sorts it
 //     (the TPU kernel's own merge, pallas_extract.py:323-402).
-//   extract_merge_weighted, grid CHUNK_W / 128: one thread per column walks
-//     nchunks * 8 slab entries and keeps the 32 smallest distinct values
-//     with their counts in register lists.
+//   extract_weighted_merge, grid CHUNK_W / 8, the weighted form: the same
+//     walk, one warp per column, keeping the 32 smallest DISTINCT values
+//     sorted across the lanes, each lane's with its count. A step's copies
+//     collapse into one lead (__match_any_sync); a lead equal to a held
+//     value adds its copies there. Up to INSERT_MAX leads are taken one
+//     at a time (a hit test, or a broadcast and a one-lane shift); more
+//     find their equals by a search across the lanes, and the rest are
+//     sorted with their counts and merged as above.
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
@@ -65,7 +70,6 @@ constexpr int ROW_BITS = 5;
 constexpr int ACC_H = 32;
 constexpr int SELECT_THREADS = 128;  // columns per block, select launch
 constexpr int SELECT_BATCH = 8;      // rows loaded ahead, select launch
-constexpr int MERGE_THREADS = 128;   // columns per block, weighted merge
 constexpr int INSERT_MAX = 6;  // entering values merged by insertion
 // ASCII of the bit-swapped 2-bit codes 0..3 (A=0 C=1 G=2 T=3 swapped:
 // 0 -> A, 1 -> G, 2 -> C, 3 -> T), little-endian
@@ -250,66 +254,128 @@ extract_warp_merge(const uint64_t* __restrict__ slab, int64_t nchunks,
   store_tile<ACC_H>(out, cand, col0);
 }
 
-// Launch 2, weighted form: grid CHUNK_W / MERGE_THREADS, thread = column.
-// A slab value already in the list adds one to its count; a new one is
-// inserted with count 1. Once the list holds 32 values its largest only
-// shrinks, so a value pushed out (or refused) never returns, and the kept
-// values' counts are exact whatever the order of the slab rows.
-__global__ void __launch_bounds__(MERGE_THREADS)
-extract_merge_weighted(const uint64_t* __restrict__ slab, int64_t nchunks,
+// Launch 2, weighted form: grid CHUNK_W / WARPS, block WARPS warps; warp w
+// of block b owns column b * WARPS + w and keeps its 32 smallest distinct
+// slab values so far, ascending across the lanes, each lane's with its
+// count. A slab value equal to a held one adds its copies to that count; a
+// smaller new one is inserted with its copies and pushes the largest out.
+// Once the list holds 32 values its largest only shrinks, so a value pushed
+// out (or refused) never returns, and the kept values' counts are exact
+// whatever the order of the slab rows. aovf: a real value pushed out or
+// refused, that is more than 32 distinct values; or a kept count - 1 too
+// wide for the weight field.
+__global__ void __launch_bounds__(BLOCK)
+extract_weighted_merge(const uint64_t* __restrict__ slab, int64_t nchunks,
                        int wshift, uint64_t* __restrict__ cand,
                        int32_t* __restrict__ flags) {
-  const int64_t col = int64_t(blockIdx.x) * MERGE_THREADS + threadIdx.x;
-  uint64_t acc[ACC_H];
-  uint32_t cnt[ACC_H];
-#pragma unroll
-  for (int r = 0; r < ACC_H; ++r) {
-    acc[r] = U64_MAX;
-    cnt[r] = 0;
-  }
+  __shared__ StripeRing ring;
+  __shared__ uint32_t gain[WARPS][ACC_H];  // copies a held value gains
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const unsigned below_me = (1u << lane) - 1u;
+  const int64_t col0 = int64_t(blockIdx.x) * WARPS;
+  uint64_t run = U64_MAX;  // the (lane)-th smallest distinct value so far
+  uint32_t cnt = 0;        // its count
+  uint64_t top = U64_MAX;  // the 32nd, in every lane
   bool ovf = false;
-  const int64_t rows = nchunks * ROWS_OUT;
-  for (int64_t row = 0; row < rows; ++row) {
-    const uint64_t x = slab[row * CHUNK_W + col];
-    if (x == U64_MAX) continue;
-    if (x > acc[ACC_H - 1]) {  // the list is full of smaller values
-      ovf = true;
-      continue;
-    }
-    bool found = false;
+  walk_stripe(ring, slab, nchunks * ROWS_OUT, col0, [&](uint64_t x, bool) {
+    const bool real = x != U64_MAX;
+    if (real && x > top) ovf = true;  // the list is full of smaller values
+    const bool in = real && x <= top;
+    const unsigned enter = __ballot_sync(FULL, in);
+    if (enter == 0) return;  // nothing enters: the usual step
+    // the step's copies collapse into their lowest lane, the lead
+    const unsigned same = __match_any_sync(FULL, in ? x : U64_MAX);
+    const bool lead = in && (same & below_me) == 0;
+    const uint32_t c = lead ? uint32_t(__popc(same)) : 0u;
+    const unsigned leads = __ballot_sync(FULL, lead);
+    if (__popc(leads) <= INSERT_MAX) {
+      // a few values: each adds to its equal, or is inserted, shifting the
+      // larger entries up a lane
+      for (unsigned rest = leads; rest; rest &= rest - 1) {
+        const int src = __ffs(rest) - 1;
+        const uint64_t y = __shfl_sync(FULL, x, src);
+        const uint32_t cy = __shfl_sync(FULL, c, src);
+        if (__any_sync(FULL, run == y)) {
+          if (run == y) cnt += cy;
+          continue;
+        }
+        const uint64_t last = __shfl_sync(FULL, run, 31);
+        if (last != U64_MAX) ovf = true;  // y or the largest drops out
+        if (y > last) continue;           // refused
+        const uint64_t below = __shfl_up_sync(FULL, run, 1);
+        const uint32_t cbelow = __shfl_up_sync(FULL, cnt, 1);
+        if (run > y) {
+          const bool shift = lane > 0 && below > y;
+          run = shift ? below : y;
+          cnt = shift ? cbelow : cy;
+        }
+      }
+    } else {
+      // many: a lead equal to a held value (found by a search across the
+      // lanes) adds its copies there; the others are sorted with their
+      // copies and merged: the half-cleaner min(run[l], new[31 - l]) keeps
+      // the 32 smallest as a bitonic sequence, a 5-stage bitonic merge
+      // sorts it
+      int pos = 0;  // held values below x
 #pragma unroll
-    for (int r = 0; r < ACC_H; ++r) {
-      const bool eq = acc[r] == x;
-      cnt[r] += eq ? 1u : 0u;
-      found |= eq;
-    }
-    if (found) continue;
-    if (acc[ACC_H - 1] != U64_MAX) ovf = true;  // its largest drops out
-    acc[ACC_H - 1] = x;
-    cnt[ACC_H - 1] = 1;
+      for (int step = 16; step > 0; step >>= 1) {
+        const uint64_t v = __shfl_sync(FULL, run, pos + step - 1);
+        if (v < x) pos += step;
+      }
+      const uint64_t at = __shfl_sync(FULL, run, pos < 31 ? pos : 31);
+      const bool hit = lead && at == x;
+      gain[warp][lane] = 0;
+      __syncwarp();
+      if (hit) gain[warp][pos] = c;
+      __syncwarp();
+      cnt += gain[warp][lane];
+      uint64_t key = lead && !hit ? x : U64_MAX;
+      uint32_t kc = lead && !hit ? c : 0u;
+      // ascending bitonic sort of (key, kc) across the warp
 #pragma unroll
-    for (int r = ACC_H - 1; r > 0; --r) {
-      const bool swap = acc[r] < acc[r - 1];
-      const uint64_t lo = swap ? acc[r] : acc[r - 1];
-      const uint64_t hi = swap ? acc[r - 1] : acc[r];
-      const uint32_t clo = swap ? cnt[r] : cnt[r - 1];
-      const uint32_t chi = swap ? cnt[r - 1] : cnt[r];
-      acc[r - 1] = lo;
-      acc[r] = hi;
-      cnt[r - 1] = clo;
-      cnt[r] = chi;
+      for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+        for (int d = size >> 1; d > 0; d >>= 1) {
+          const uint64_t y = __shfl_xor_sync(FULL, key, d);
+          const uint32_t yc = __shfl_xor_sync(FULL, kc, d);
+          const bool low = ((lane & size) == 0) == ((lane & d) == 0);
+          if (low ? y < key : y > key) {
+            key = y;
+            kc = yc;
+          }
+        }
+      }
+      const uint64_t t = __shfl_sync(FULL, key, 31 - lane);
+      const uint32_t tc = __shfl_sync(FULL, kc, 31 - lane);
+      const uint64_t dropped = t < run ? run : t;
+      if (dropped != U64_MAX) ovf = true;
+      if (t < run) {
+        run = t;
+        cnt = tc;
+      }
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        const uint64_t y = __shfl_xor_sync(FULL, run, d);
+        const uint32_t yc = __shfl_xor_sync(FULL, cnt, d);
+        const bool low = (lane & d) == 0;
+        if (low ? y < run : y > run) {
+          run = y;
+          cnt = yc;
+        }
+      }
     }
-  }
+    top = __shfl_sync(FULL, run, 31);
+  });
+  const bool real = run != U64_MAX;
+  const uint32_t wm1 = real ? cnt - 1u : 0u;
   const int wbits = 64 - wshift;
-#pragma unroll
-  for (int r = 0; r < ACC_H; ++r) {
-    const bool real = acc[r] != U64_MAX;
-    const uint32_t wm1 = real ? cnt[r] - 1u : 0u;
-    if (real && wbits < 32 && (wm1 >> wbits) != 0) ovf = true;
-    cand[int64_t(r) * CHUNK_W + col] =
-        real ? acc[r] + (uint64_t(wm1) << wshift) : U64_MAX;
-  }
-  if (ovf) atomicOr(&flags[1], 1);
+  if (real && wbits < 32 && (wm1 >> wbits) != 0) ovf = true;
+  if (__any_sync(FULL, ovf) && lane == 0) atomicOr(&flags[1], 1);
+  uint64_t(*out)[TILE_PAD] = out_tile(ring);
+  out[lane][warp] = real ? run + (uint64_t(wm1) << wshift) : U64_MAX;
+  __syncthreads();
+  store_tile<ACC_H>(out, cand, col0);
 }
 
 }  // namespace
@@ -355,7 +421,7 @@ extern "C" int finch_extract(const void* vlo_p, const void* vhi_p,
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   if (weighted)
-    extract_merge_weighted<<<CHUNK_W / MERGE_THREADS, MERGE_THREADS, 0, s>>>(
+    extract_weighted_merge<<<CHUNK_W / WARPS, BLOCK, 0, s>>>(
         sl, nchunks, 2 * k + 2, static_cast<uint64_t*>(cand_p), fl);
   else
     extract_warp_merge<<<CHUNK_W / WARPS, BLOCK, 0, s>>>(

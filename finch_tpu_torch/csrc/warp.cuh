@@ -1,5 +1,5 @@
 // Device helpers shared by extract.cu and dedup.cu: the lane layout of a
-// column stripe, a warp-wide bitonic sort, and the shared-memory ring that
+// column stripe, warp-wide bitonic sorts, and the shared-memory ring that
 // streams a block's column stripe in with cp.async.
 //
 // A "column stripe" is WARPS=8 adjacent columns of a row-major
@@ -42,26 +42,44 @@ __device__ __forceinline__ int swz(int row, int col) {
   return col ^ ((row >> 1) & (WARPS - 1));
 }
 
-// Ascending bitonic sort of one value per lane across the warp.
-__device__ __forceinline__ uint64_t warp_sort(uint64_t x, int lane) {
+// Ascending bitonic sorts of N independent lists, one value of each per
+// lane, across the warp. The N sorts run interleaved, so that their
+// shuffles overlap.
+template <int N>
+__device__ __forceinline__ void warp_sort_n(uint64_t (&x)[N], int lane) {
 #pragma unroll
   for (int size = 2; size <= 32; size <<= 1) {
 #pragma unroll
     for (int d = size >> 1; d > 0; d >>= 1) {
-      const uint64_t y = __shfl_xor_sync(FULL, x, d);
       const bool up = (lane & size) == 0;
       const bool low = (lane & d) == 0;
-      const uint64_t mn = x < y ? x : y;
-      const uint64_t mx = x < y ? y : x;
-      x = (low == up) ? mn : mx;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const uint64_t y = __shfl_xor_sync(FULL, x[i], d);
+        const uint64_t mn = x[i] < y ? x[i] : y;
+        const uint64_t mx = x[i] < y ? y : x[i];
+        x[i] = (low == up) ? mn : mx;
+      }
     }
   }
-  return x;
+}
+
+// Ascending bitonic sort of one value per lane across the warp.
+__device__ __forceinline__ uint64_t warp_sort(uint64_t x, int lane) {
+  uint64_t a[1] = {x};
+  warp_sort_n(a, lane);
+  return a[0];
 }
 
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(gmem));
 }
 

@@ -34,6 +34,13 @@ survivors before D2 saw them). Under overflow it is still this function,
 bit for bit: the sketch's adaptive-absorb hint reads it. The TPU kernels'
 DUP_W lane windows, a VMEM workaround, are gone: columns are independent,
 so the windows changed nothing but the OR of the flags.
+
+The kernels (``dedup_lanes_warp``, tier D; ``dedup_slab_warp``, tier D2)
+run one warp per column and share one accumulator step. Both are bound
+by bytes (16 B a lane for D, 8 B a slab entry for D2) and by the chain of
+a column's steps, so their new rows stream through a shared-memory ring
+ahead of the steps, tier D sorts a stage's dense steps before the chain
+walks them, and steps that cannot drop a head merge into one pass.
 """
 
 from __future__ import annotations

@@ -61,8 +61,11 @@ block streams its 8 columns' slab rows through a shared-memory ring, 32
 rows a step; a step in which no value is below the running 32nd smallest
 is skipped with one ballot, and any other is sorted across the warp and
 merged by a half-cleaner and a bitonic merge (the TPU kernel's own merge).
-Weighted (``extract_merge_weighted``), one thread per column keeps the 32
-smallest distinct values with counts in registers (not yet redesigned).
+Weighted (``extract_weighted_merge``, the same grid and ring), one warp
+per column keeps the 32 smallest distinct values sorted across the lanes,
+each with its count: a step's copies collapse into one value with a count,
+which adds to its equal among the held values or is inserted (one at a
+time when few, else sorted and merged as the unweighted merge does).
 """
 
 from __future__ import annotations

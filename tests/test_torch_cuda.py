@@ -143,6 +143,65 @@ def test_weighted_kernel_matches_plain(cuda, k, nch, dup, shuffle, frac):
         assert torch.equal(g, w)
 
 
+# per chunk, the survivors of the edge column as indices into the sorted
+# survivor pool (rows 0.. of the chunk); 16 chunks, 4 merge steps, and the
+# weighted flag aovf
+WEIGHTED_SYNTHETIC = {
+    # 32 distinct values, 8 a chunk: copies within a step and across steps
+    "distinct_32": ([[(5 * i + j) % 32 + 1 for j in range(8)]
+                     for i in range(16)], 0),
+    # the same, and in the last chunk a 33rd value below them all: the
+    # largest held value (and its count) drops out in a sorted merge
+    "distinct_33": ([[(5 * i + j) % 32 + 1 for j in range(8)]
+                     for i in range(15)] + [[0] + list(range(12, 19))], 1),
+    # a full list, then one smaller value (inserted: the largest drops
+    # out, the only cause of aovf) and copies of held values
+    "insert_push": ([list(range(1 + 8 * i, 9 + 8 * i)) for i in range(4)]
+                    + [[0], [], [], [], [5, 5, 6]] + [[]] * 6 + [[1]], 1),
+    # a full list, then a larger value (refused: the only cause of aovf)
+    # and copies of held values
+    "refused": ([list(range(8 * i, 8 * i + 8)) for i in range(4)]
+                + [[40], [], [], [], [3, 3]] + [[]] * 7, 1),
+    # a held value gains copies, is pushed out in the same step, and
+    # returns in two later steps
+    "pushed_out_returns": ([[40] + list(range(7)), list(range(7, 15)),
+                            list(range(15, 23)), [40],
+                            list(range(23, 31)), [31, 32, 33], [40, 5, 5],
+                            [], [40], [], [], [], [40, 3], [], [], []], 1),
+}
+
+
+def weighted_synthetic(case, dev):
+    """Lanes in which only columns 5 and 2046 have survivors (threshold
+    half the hash space), per chunk as WEIGHTED_SYNTHETIC lists them.
+    Returns (vlo, vhi, thresh, aovf)."""
+    chunks, aovf = WEIGHTED_SYNTHETIC[case]
+    k, th = 21, 2**63
+    rng = np.random.default_rng(3)
+    low, high = _split_by_hash(rng, k, 4096, th)
+    low = np.sort(low)
+    lanes = high[rng.integers(0, len(high), size=len(chunks) * extract.CHUNK)]
+    lanes = lanes.reshape(len(chunks), extract.COLH, extract.CHUNK_W)
+    for c, idx in enumerate(chunks):
+        for col in (5, 2046):
+            lanes[c, :len(idx), col] = low[idx]
+    vlo, vhi = _planes(lanes.reshape(-1) << np.uint64(1), dev)
+    return vlo, vhi, torch.tensor([u64.to_i64(th)], device=dev), aovf
+
+
+@pytest.mark.parametrize("case", sorted(WEIGHTED_SYNTHETIC))
+def test_weighted_kernel_edges(cuda, case):
+    vlo, vhi, th, aovf = weighted_synthetic(case, cuda)
+    got = extract.extract_candidates(vlo, vhi, th, k=21, seed=0,
+                                     weighted=True)
+    torch.cuda.synchronize()
+    want = extract.extract_candidates_plain(vlo, vhi, th, k=21, seed=0,
+                                            weighted=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (int(got[4]), int(got[5])) == (0, aovf)
+
+
 @pytest.mark.parametrize("k,nch,dup,shuffle,frac", [
     (21, 2, 64, False, 1.0),    # a cold burst: D holds it
     (21, 4, 1, False, 1.0),     # cold and distinct: dovf
@@ -242,6 +301,67 @@ def test_dedup_slab_kernel_edges(cuda, case):
     got = dedup.dedup_slab_candidates(slab, k=21)
     torch.cuda.synchronize()
     want = dedup.dedup_slab_candidates_plain(slab, k=21)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1]) == ovf
+
+
+# tier D's edge cases, one D2_SYNTHETIC-style group per chunk: (groups,
+# dovf)
+D_SYNTHETIC = {
+    **D2_SYNTHETIC,
+    # 27 chunks, longer than the ring's 16: 22 dense steps of two copies
+    # of each of the 16 held values, u64::MAX chunks, 8 copies of a new
+    # value, and a last chunk with no survivor
+    "ring_copies": ([("pool", 32, 16)] * 22
+                    + [None, ("copies", 8), None, ("pool", 3, 16), None], 0),
+    # 64 heads, a dense step of their copies (rows up to 95), 12 new
+    # values waiting, then copies again: that step's rows pass 95 and the
+    # largest heads drop, though every value is a copy of a head
+    "hits_past_96": ([("pool", 32, 64)] * 3
+                     + [("fresh", 12), ("pool", 32, 64), None], 1),
+}
+
+
+def lanes_from_slab(slab, th, seed=0):
+    """Tier D lanes whose survivors are a synthetic slab's real entries:
+    a lane is the slab value - 1 with a hash at or below th (a tenth of
+    them exactly th). Any other lane is padding (both planes all-ones; a
+    third of them, with hashes at or below th too) or a random value whose
+    hash is above th (a tenth of them exactly th + 1). Returns the value
+    and hash planes as u64 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    real = slab != MAX
+    n = slab.size
+    low_h = rng.integers(0, th, size=n, dtype=np.uint64, endpoint=True)
+    low_h[rng.random(n) < 0.1] = np.uint64(th)
+    high_h = rng.integers(th + 1, 2**64 - 1, size=n, dtype=np.uint64,
+                          endpoint=True)
+    high_h[rng.random(n) < 0.1] = np.uint64(th + 1)
+    pad = ~real & (rng.random(n) < 0.3)
+    v = np.where(real, slab - np.uint64(1),
+                 rng.integers(0, 2**62, size=n, dtype=np.uint64))
+    v[pad] = MAX
+    h = np.where(real | (pad & (rng.random(n) < 0.5)), low_h, high_h)
+    return v, h
+
+
+def d_synthetic(case, dev):
+    """The planes and threshold of a D_SYNTHETIC case, and its dovf."""
+    groups, ovf = D_SYNTHETIC[case]
+    th = 2**63 + 12345
+    v, h = lanes_from_slab(synthetic_slab(groups).view(np.uint64), th)
+    vlo, vhi = _planes(v, dev)
+    hlo, hhi = _planes(h, dev)
+    return vlo, vhi, hlo, hhi, torch.tensor([u64.to_i64(th)], device=dev), ovf
+
+
+@pytest.mark.parametrize("case", sorted(D_SYNTHETIC))
+def test_dedup_kernel_edges(cuda, case):
+    vlo, vhi, hlo, hhi, th, ovf = d_synthetic(case, cuda)
+    got = dedup.dedup_candidates(vlo, vhi, hlo, hhi, th, k=21)
+    torch.cuda.synchronize()
+    want = dedup.dedup_candidates_plain(vlo, vhi, hlo, hhi, th, k=21)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[1]) == ovf
