@@ -27,6 +27,18 @@ card, and then drives two paths:
   A/B/C-only one (five pairs in turns), and NativeEngine must give
   identical sketches.
 
+* [dist] runs `finch dist` at DB scale through calc_sketch_distances on
+  the card: all-vs-all over 10,000 sketches of 1,000 hashes, clustered
+  (benchmarks/bench_dist10k.py's recipe, --max-dist 0.3, about 1M
+  surviving pairs: the Gram engine and the survivors pass) and disjoint
+  (the bandwidth-bound control), and 64 queries against the clustered DB
+  (the tile engine). Each cell is held against an independent host Gram
+  (scipy.sparse), the host below counts and the serial distance() on
+  2,000 sampled pairs, and prints pairs/s and each phase's device time
+  from torch.profiler. Then the full-matrix path at 4,000 sketches, and
+  the CLI's `dist -p` over a 128-sketch file against --backend numpy.
+  [dist] launches none of the kernels below: the distance path has none.
+
 Each kernel's launch counter is zeroed just before each run and read just
 after, and must equal the steps that by the tier switch's rules launch
 that kernel. Every phase raises on failure and the script exits non-zero.
@@ -733,24 +745,54 @@ GOLDENS = [
 ]
 
 
+# `hist` and `info` of tests/data/query.fa at --n-hashes 10, as the JAX
+# package's CLI prints them (tests/test_torch_dist_cli.py holds the port's
+# CLI to the same bytes on the CPU)
+HIST_QUERY = b'{"tests/data/query.fa":[8,2]}'
+INFO_QUERY = ("tests/data/query.fa (from 405bp)\n"
+              "  Estimated # of Unique Kmers: 646\n"
+              "  Estimated Average Depth: 1.2x\n"
+              "  Estimated % GC: 48.015873%\n")
+
+
 def phase_goldens(tmp: str) -> float:
-    """The port's CLI on the card reproduces the frozen goldens."""
+    """The port's CLI on the card reproduces the frozen goldens: the five
+    sketch files, `finch dist` between a sketch file and a FASTQ, and
+    `hist` and `info`."""
+    import io
+
     from finch_tpu_torch import cli
 
     t0 = time.perf_counter()
-    for golden, args in GOLDENS:
+    out = os.path.join(tmp, "golden_out")
+    runs = [(golden, ["sketch", "--backend", "torch", *args])
+            for golden, args in GOLDENS]
+    runs.append(("dist_query_reads.json",
+                 ["dist", "-N", "tests/data/goldens/query_mash_n10.sk",
+                  "tests/data/reads.fastq"]))
+    for golden, args in runs:
         ext = golden.rsplit(".", 1)[1]
-        out = os.path.join(tmp, "golden_out")
-        cli.run(["sketch", "--backend", "torch", "--device", "cuda", *args,
-                 "-o", out])
+        cli.run([*args, "--device", "cuda", "-o", out])
         with open(f"{out}.{ext}", "rb") as f:
             got = f.read()
         with open(os.path.join(REPO, "tests", "data", "goldens", golden),
                   "rb") as f:
             if got != f.read():
                 raise AssertionError(f"golden {golden} differs on the card")
+    cli.run(["hist", "--n-hashes", "10", "--device", "cuda",
+             "tests/data/query.fa", "-o", out])
+    with open(f"{out}.json", "rb") as f:
+        if f.read() != HIST_QUERY:
+            raise AssertionError("hist differs on the card")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli.run(["info", "--n-hashes", "10", "--device", "cuda",
+                 "tests/data/query.fa"])
+    if text.getvalue() != INFO_QUERY:
+        raise AssertionError(f"info differs on the card: {text.getvalue()!r}")
     secs = time.perf_counter() - t0
-    log(f"[goldens] 5/5 byte-equal through the CLI on cuda in {secs:.2f} s")
+    log(f"[goldens] {len(runs)}/{len(runs)} byte-equal (5 sketches, dist) "
+        f"and hist, info equal through the CLI on cuda in {secs:.2f} s")
     return secs
 
 
@@ -1084,6 +1126,437 @@ def phase_dup(seed: int, b: int = 1 << 21, nbatch: int = 64,
     return out
 
 
+# ---------------------------------------------------------------------------
+# [dist]: `finch dist` at DB scale
+# ---------------------------------------------------------------------------
+
+DIST_N = 10_000        # sketches in each all-pairs DB
+DIST_K = 1_000         # hashes a sketch: the CLI's default sketch size
+DIST_MAX = 0.3         # --max-dist
+DIST_Q = 64            # queries of the query-vs-DB cell
+DIST_FULL_N = 4_000    # sketches of the full-matrix path's check
+DIST_SAMPLES = 2_000   # pairs a cell holds against the serial distance()
+DIST_CLI_N = 128       # sketches in the file of the CLI's `dist -p`
+INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor peak (data sheet)
+# the PyTorch calls that do the distance phases' device work, timed alone
+DIST_LIBRARY_CALLS = ("aten::sort", "aten::nonzero", "aten::index_put_",
+                      "aten::_int_mm", "aten::addmm_", "aten::searchsorted",
+                      "aten::gather")
+
+
+def clustered_db(rng, n: int, k: int, n_clusters: int = 100,
+                 share: float = 0.2):
+    """benchmarks/bench_dist10k.py's recipe: each member of a cluster
+    draws `share` of its hashes from a per-cluster pool of 4k hashes and
+    the rest at random below 2^62. Rows ascending."""
+    import numpy as np
+
+    per = n // n_clusters
+    out = np.empty((n, k), dtype=np.uint64)
+    n_shared = int(k * share)
+    for c in range(n_clusters):
+        pool = rng.choice(1 << 62, size=k * 4, replace=False).astype(
+            np.uint64)
+        for m in range(per):
+            shared = rng.choice(pool, size=n_shared, replace=False)
+            priv = rng.choice(1 << 62, size=k - n_shared,
+                              replace=False).astype(np.uint64)
+            out[c * per + m] = np.sort(
+                np.unique(np.concatenate([shared, priv]))[:k])
+    return out
+
+
+def disjoint_db(rng, n: int, k: int):
+    """n x k distinct hashes over the whole u64 range, none shared (half of
+    them >= 2^63, which only u64-ordered compares handle). Rows
+    ascending."""
+    import numpy as np
+
+    while True:
+        flat = rng.integers(0, 2**64 - 1, size=n * k, dtype=np.uint64)
+        if len(np.unique(flat)) == n * k:
+            return np.sort(flat.reshape(n, k), axis=1)
+
+
+def dist_sketches(H, names):
+    """The port's Sketch objects over the rows of H: mash, k=21, sized as
+    the rows, as a sketch file would load them."""
+    import numpy as np
+
+    from finch_tpu_torch.core.sketch import LazyKmerCounts, Sketch
+    from finch_tpu_torch.models.params import FilterParams, SketchParams
+
+    k = H.shape[1]
+    params = SketchParams.mash(kmers_to_sketch=k, final_size=k,
+                               kmer_length=21)
+    kmers = [b""] * k
+    ones = np.ones(k, dtype=np.uint32)
+    return [Sketch(name=nm, seq_length=0, num_valid_kmers=0, comment="",
+                   hashes=LazyKmerCounts(H[i], kmers, ones, ones),
+                   filter_params=FilterParams(filter_on=False),
+                   sketch_params=params)
+            for i, nm in enumerate(names)]
+
+
+def host_gram(H, L):
+    """An independent common-count matrix: E (distinct hash x sketch) from
+    a numpy sort, E^T E by scipy.sparse. (N, N) CSR, int64; the diagonal
+    is the sketch sizes."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n, k = H.shape
+    real = np.arange(k)[None, :] < np.asarray(L)[:, None]
+    _, d = np.unique(H[real], return_inverse=True)
+    e = sp.csr_matrix((np.ones(d.size, dtype=np.int64),
+                       (d.reshape(-1), np.nonzero(real)[0])),
+                      shape=(int(d.max()) + 1, n))
+    return (e.T @ e).tocsr()
+
+
+def expected_rows(q, r, c, i, j, k: float):
+    """The rows the distance engines must return for the pairs (q, r)
+    with integer stats (c, i, j), c > 0: finch's f64 formulas
+    (distance.rs:29-47) written out here, the cut at DIST_MAX, ref-major."""
+    import numpy as np
+
+    total = i + j - c
+    jac = c / np.where(total == 0, 1, total)
+    jac[total == 0] = 1.0
+    cont = c / np.where(j == 0, 1, j)
+    cont[j == 0] = 0.0
+    mash = np.clip(-np.log(2.0 * jac / (1.0 + jac)) / k, 0.0, 1.0)
+    keep = mash <= DIST_MAX
+    q, r = q[keep], r[keep]
+    o = np.lexsort((q, r))
+    return {"iq": q[o], "jr": r[o], "common": c[keep][o],
+            "total": total[keep][o], "containment": cont[keep][o],
+            "jaccard": jac[keep][o], "mash": mash[keep][o]}
+
+
+def require_rows(cell: str, rows, want: dict) -> None:
+    import numpy as np
+
+    got = {"iq": rows._iq, "jr": rows._jr, "common": rows._common,
+           "total": rows._total, "containment": rows._containment,
+           "jaccard": rows._jaccard, "mash": rows._mash}
+    for f, w in want.items():
+        if not np.array_equal(np.asarray(got[f]), w):
+            raise AssertionError(f"[dist] {cell}: rows' {f} differ from the "
+                                 f"host's ({len(got[f])} vs {len(w)} rows)")
+
+
+def require_samples(cell: str, rows, queries, refs, seed: int,
+                    self_pairs: bool) -> None:
+    """DIST_SAMPLES pairs, half from the rows and half uniform, against the
+    serial distance(): a pair is a row iff its mash distance passes the
+    cut, and then every field is equal."""
+    import numpy as np
+
+    from finch_tpu_torch.core.distance import distance
+
+    nq = len(queries)
+    keys = rows._jr.astype(np.int64) * nq + rows._iq
+    if len(keys) and not (np.diff(keys) > 0).all():
+        raise AssertionError(f"[dist] {cell}: rows not in ref-major order")
+    rng = np.random.default_rng(seed)
+    half = DIST_SAMPLES // 2
+    pick = rng.integers(0, max(1, len(keys)), size=half)
+    pairs = [(int(rows._iq[x]), int(rows._jr[x])) for x in pick
+             if len(keys)]
+    pairs += list(zip(rng.integers(0, nq, size=DIST_SAMPLES - len(pairs)),
+                      rng.integers(0, len(refs),
+                                   size=DIST_SAMPLES - len(pairs))))
+    hits = 0
+    for qi, ri in pairs:
+        if self_pairs and qi == ri:
+            continue
+        d = distance(queries[qi], refs[ri])
+        key = ri * nq + qi
+        pos = int(np.searchsorted(keys, key))
+        found = pos < len(keys) and keys[pos] == key
+        if found != (d.mash_distance <= DIST_MAX):
+            raise AssertionError(f"[dist] {cell}: pair ({qi}, {ri}) row "
+                                 f"{found} but mash {d.mash_distance}")
+        if found:
+            hits += 1
+            if rows[pos].to_json_dict() != d.to_json_dict():
+                raise AssertionError(f"[dist] {cell}: pair ({qi}, {ri}) "
+                                     f"differs from distance()")
+    if hits == 0 and len(keys):
+        raise AssertionError(f"[dist] {cell}: no sampled row")
+
+
+@contextlib.contextmanager
+def count_calls(mod, names):
+    """While inside, the calls of mod's functions `names` are counted."""
+    calls = {n: 0 for n in names}
+    saved = {n: getattr(mod, n) for n in names}
+
+    def wrap(n):
+        def f(*a, **k):
+            calls[n] += 1
+            return saved[n](*a, **k)
+        return f
+    for n in names:
+        setattr(mod, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(mod, n, fn)
+
+
+def dist_profile(fn) -> dict:
+    """One more run of fn under torch.profiler: each `dist.<phase>`
+    range's calls, host ms and device ms (the kernels launched inside it),
+    the int8 products (count and operations), and the card's busy share
+    of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t
+    phases, mm = {}, [0, 0]
+    calls = {n: [0, 0.0] for n in DIST_LIBRARY_CALLS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in calls:
+            calls[e.name][0] += 1
+            calls[e.name][1] += e.device_time_total / 1e3
+        if e.name.startswith("dist."):
+            p = phases.setdefault(e.name[5:], [0, 0.0, 0.0])
+            p[0] += 1
+            p[1] += e.cpu_time_total / 1e3
+            p[2] += e.device_time_total / 1e3
+        elif e.name == "aten::_int_mm" and e.input_shapes:
+            (m, kk), (_, nn) = e.input_shapes[0][:2], e.input_shapes[1][:2]
+            mm[0] += 1
+            mm[1] += 2 * m * kk * nn
+
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not e.key.startswith("dist."))
+    return {"wall_s": wall, "busy_s": busy / 1e6, "phases": phases,
+            "int_mm": mm[0], "int8_ops": mm[1], "library": calls}
+
+
+def _phase_line(prof: dict) -> str:
+    parts = [f"{n} {v[2]:.3f} ms dev / {v[1]:.3f} ms host / {v[0]} calls"
+             for n, v in prof["phases"].items()]
+    gram = prof["phases"].get("gram")
+    if gram and gram[2] > 0:
+        tops = prof["int8_ops"] / (gram[2] / 1e3) / 1e12
+        parts.append(f"Gram products {prof['int_mm']}, {prof['int8_ops']:.4g}"
+                     f" int8 ops, {tops:.1f} TOPS = "
+                     f"{100 * tops * 1e12 / INT8_OPS_PER_S:.2f}% of the "
+                     f"1979 TOPS peak")
+    parts.append("library calls " + ", ".join(
+        f"{n[6:]} {c[1]:.3f} ms dev / {c[0]}" for n, c in
+        prof["library"].items() if c[0]))
+    if not prof["busy_s"]:
+        return "; ".join(parts) + "; card busy: not measured (no device time)"
+    share = 100 * prof["busy_s"] / prof["wall_s"]
+    return "; ".join(parts) + (f"; card busy {prof['busy_s']:.3f} s of the "
+                               f"profiled wall {prof['wall_s']:.3f} s "
+                               f"({share:.1f}%)")
+
+
+def dist_cell(cell: str, fn, pairs: int) -> tuple:
+    """fn() -> rows of calc_sketch_distances. A warm run, a timed run
+    (calc, then the JSON bytes), a profiled run. Returns (rows, numbers)."""
+    import torch
+
+    from finch_tpu_torch import cli
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = fn()
+    t1 = time.perf_counter()
+    payload = cli._dist_json_bytes(rows)
+    t2 = time.perf_counter()
+    prof = dist_profile(fn)
+    out = {"pairs": pairs, "rows": len(rows), "calc_s": t1 - t0,
+           "json_s": t2 - t1, "json_bytes": len(payload),
+           "pairs_per_s": pairs / (t2 - t0), "profile": prof}
+    log(f"[dist] {cell}: {pairs} pairs, {len(rows)} rows <= {DIST_MAX}: "
+        f"calc {t1 - t0:.4f} s + JSON {t2 - t1:.4f} s ({len(payload)} B) = "
+        f"{pairs / (t2 - t0):.4g} pairs/s end to end")
+    log(f"[dist] {cell} phases: {_phase_line(prof)}")
+    return rows, out
+
+
+def phase_dist(tmp: str, seed: int) -> dict:
+    """`finch dist` at DB scale through calc_sketch_distances on the card,
+    three cells, each held against independent host code; then the
+    full-matrix path and the CLI's `dist -p`."""
+    import numpy as np
+
+    from finch_tpu_torch import cli, parallel
+    from finch_tpu_torch.parallel import mxu_dist, sharded_dist
+    from finch_tpu_torch.serialization.finch_bsk import write_finch_file
+
+    rng = np.random.default_rng(seed + 5)
+    k = 21.0
+    L = np.full(DIST_N, DIST_K, dtype=np.int32)
+    out = {}
+    for cell, H in (("dist_allpairs_clustered",
+                     clustered_db(rng, DIST_N, DIST_K)),
+                    ("dist_allpairs_disjoint",
+                     disjoint_db(rng, DIST_N, DIST_K))):
+        t = time.perf_counter()
+        sks = dist_sketches(H, [f"g{i:05d}" for i in range(DIST_N)])
+        with count_calls(mxu_dist, ["all_pairs_survivors"]) as calls:
+            rows, out[cell] = dist_cell(
+                cell, lambda: cli.calc_sketch_distances(
+                    sks, sks, False, DIST_MAX, device="cuda"),
+                DIST_N * (DIST_N - 1))
+        if calls["all_pairs_survivors"] != 3:
+            raise AssertionError(f"[dist] {cell}: the survivors path ran "
+                                 f"{calls} times in 3 runs")
+        t_host = time.perf_counter()
+        G = host_gram(H, L)
+        maxima = mxu_dist._sketch_maxima(H, L)
+        below = mxu_dist._below_counts(H, L, maxima)
+        host_s = time.perf_counter() - t_host
+        # common of every pair, and the i/j counts, against the host's
+        common = mxu_dist.all_pairs_common(H, L, device="cuda")
+        coo = G.tocoo()
+        gr, gc = coo.row, coo.col
+        if (np.count_nonzero(common) != G.nnz
+                or not np.array_equal(common[gr, gc], coo.data)):
+            raise AssertionError(f"[dist] {cell}: common != host Gram")
+        del common
+        if not np.array_equal(mxu_dist.below_counts_device(
+                H, L, maxima, device="cuda"), below):
+            raise AssertionError(f"[dist] {cell}: below counts != host")
+        off = gr != gc
+        q, r, c = gr[off], gc[off], coo.data[off]
+        want = expected_rows(q, r, c, np.minimum(below[q, r], L[q]),
+                             np.minimum(below[r, q], L[r]), k)
+        require_rows(cell, rows, want)
+        require_samples(cell, rows, sks, sks, seed, self_pairs=True)
+        log(f"[dist] {cell}: common == host Gram ({G.nnz} nonzeros), i/j "
+            f"== host below counts, {len(rows)} rows == the host's, "
+            f"{DIST_SAMPLES} sampled pairs == distance() (host reference "
+            f"{host_s:.1f} s, cell {time.perf_counter() - t:.1f} s)")
+        if cell == "dist_allpairs_clustered":
+            out["full_matrix"] = dist_full_matrix(H, sks, G)
+            db_H, db_sks, db_G, db_below = H, sks, G, below
+            out["clustered_rows"] = len(rows)
+        del rows, G, below
+
+    # query-vs-DB: 64 of the clustered DB's sketches, renamed, spread over
+    # the clusters, against all 10k: the tile engine
+    cell = "dist_query_db"
+    t = time.perf_counter()
+    idx = np.arange(DIST_Q) * (DIST_N // DIST_Q)
+    queries = dist_sketches(db_H[idx], [f"q{i:02d}" for i in range(DIST_Q)])
+    with count_calls(parallel, ["all_vs_all_arrays"]) as calls:
+        rows, out[cell] = dist_cell(
+            cell, lambda: cli.calc_sketch_distances(
+                queries, db_sks, False, DIST_MAX, device="cuda"),
+            DIST_Q * DIST_N)
+    if calls["all_vs_all_arrays"] != 3:
+        raise AssertionError(f"[dist] {cell}: the tile engine ran {calls}")
+    c_d, i_d, j_d = (m.astype(np.int64) for m in sharded_dist.
+                     all_vs_all_arrays([db_H[x] for x in idx], list(db_H),
+                                       device="cuda"))
+    Lq = L[idx]
+    want_c = db_G[idx].toarray()
+    want_i = np.minimum(db_below[idx, :], Lq[:, None])
+    want_j = np.minimum(db_below[:, idx].T, L[None, :])
+    for name, g, w in (("common", c_d, want_c), ("i", i_d, want_i),
+                       ("j", j_d, want_j)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"[dist] {cell}: {name} != the host's")
+    q, r = np.nonzero(want_c)
+    want = expected_rows(q, r, want_c[q, r], want_i[q, r], want_j[q, r], k)
+    require_rows(cell, rows, want)
+    require_samples(cell, rows, queries, db_sks, seed + 1, self_pairs=False)
+    log(f"[dist] {cell}: common, i, j of all {DIST_Q * DIST_N} pairs == "
+        f"the host's, {len(rows)} rows == the host's, {DIST_SAMPLES} "
+        f"sampled pairs == distance() (cell {time.perf_counter() - t:.1f} "
+        f"s)")
+
+    # the CLI: `dist -p` over one multi-sketch file (the Gram route), its
+    # JSON bytes against the serial loop's (--backend numpy)
+    t = time.perf_counter()
+    bsk = os.path.join(tmp, "dist_db.bsk")
+    with open(bsk, "wb") as f:
+        f.write(write_finch_file(db_sks[:DIST_CLI_N]))
+    for extra in ([], ["--max-dist", str(DIST_MAX)]):
+        got = {}
+        for backend in ("cuda", "numpy"):
+            o = os.path.join(tmp, f"dist_{backend}")
+            flags = (["--device", "cuda"] if backend == "cuda"
+                     else ["--backend", "numpy"])
+            with count_calls(mxu_dist, ["all_pairs_survivors",
+                                        "all_pairs_stats"]) as calls:
+                cli.run(["dist", "-p", bsk, *extra, *flags, "-o", o])
+            if (backend == "cuda") != any(calls.values()):
+                raise AssertionError(f"[dist] CLI {backend}: Gram calls "
+                                     f"{calls}")
+            with open(f"{o}.json", "rb") as f:
+                got[backend] = f.read()
+        if got["cuda"] != got["numpy"]:
+            raise AssertionError(f"[dist] CLI dist -p {extra}: bytes differ "
+                                 "from --backend numpy")
+        log(f"[dist] CLI dist -p {' '.join(extra) or '(max-dist 1.0)'} over "
+            f"{DIST_CLI_N} sketches: {len(got['cuda'])} B, byte-equal to "
+            f"--backend numpy")
+    log(f"[dist] CLI checks {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def dist_full_matrix(H, sks, G) -> dict:
+    """The full-matrix path (all_pairs_stats) at DIST_FULL_N sketches:
+    every matrix against the host's, and the rows it gives when the
+    survivors pass is out of contract against the survivors path's."""
+    import numpy as np
+
+    from finch_tpu_torch import cli
+    from finch_tpu_torch.parallel import mxu_dist
+
+    n = DIST_FULL_N
+    H4 = H[:n]
+    L4 = np.full(n, H.shape[1], dtype=np.int32)
+    G4 = G[:n, :n].toarray()
+    below = mxu_dist._below_counts(H4, L4, mxu_dist._sketch_maxima(H4, L4))
+    i4 = np.minimum(below, L4[:, None].astype(np.int64))
+    for run in ("cold", "warm"):
+        t = time.perf_counter()
+        c, i, j = mxu_dist.all_pairs_stats(H4, L4, device="cuda")
+        secs = time.perf_counter() - t
+        if not (np.array_equal(c, G4) and np.array_equal(i, i4)
+                and np.array_equal(j, i4.T)):
+            raise AssertionError(f"[dist] full matrix ({run}): differs "
+                                 "from the host's")
+        log(f"[dist] full matrix at {n}: all_pairs_stats ({run}) "
+            f"{secs:.4f} s, common/i/j == the host's")
+    surv = cli._calc_distances_gram(sks[:n], 0.0, 21.0, DIST_MAX,
+                                    device="cuda")
+    # survivors past their cap: _calc_distances_gram takes the full matrix
+    saved = mxu_dist.all_pairs_survivors
+    mxu_dist.all_pairs_survivors = lambda *a, **kw: None
+    try:
+        full = cli._calc_distances_gram(sks[:n], 0.0, 21.0, DIST_MAX,
+                                        device="cuda")
+    finally:
+        mxu_dist.all_pairs_survivors = saved
+    want = {f: getattr(surv, f"_{f}") for f in (
+        "iq", "jr", "common", "total", "containment", "jaccard", "mash")}
+    require_rows("full matrix", full, want)
+    log(f"[dist] full matrix at {n}: {len(full)} rows == the survivors "
+        f"path's")
+    return {"n": n, "rows": len(full)}
+
+
 def profile_torch_run(fn) -> None:
     """One more torch-backend run under torch.profiler (outside the timed
     runs; the profiler slows the host): device-busy share and the device
@@ -1157,6 +1630,7 @@ def main(argv=None) -> int:
         phase_goldens(tmp)
         main_path = phase_main_path(tmp, opts.seed)
         dup = phase_dup(opts.seed)
+        phase_dist(tmp, opts.seed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

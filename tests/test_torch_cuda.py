@@ -365,3 +365,94 @@ def test_dedup_kernel_edges(cuda, case):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[1]) == ovf
+
+
+# ---------------------------------------------------------------------------
+# the distance path's device phases (library calls, no kernel of the
+# port's): each on the card against the same function on the CPU
+# ---------------------------------------------------------------------------
+
+def _dist_db(seed, n, kmax=64, pool=3000):
+    """n sorted distinct sketches over a shared full-range u64 pool, a
+    third of it >= 2^63; lengths 1..kmax, one of exactly kmax."""
+    rng = np.random.default_rng(seed)
+    p = np.unique(rng.integers(0, 2**64 - 1, size=max(pool, kmax),
+                               dtype=np.uint64))
+    p[: len(p) // 3] |= np.uint64(1 << 63)
+    p = np.unique(p)
+    return [np.sort(rng.choice(p, size=kmax if i == 0 else
+                               int(rng.integers(1, kmax)), replace=False))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("run_block", [2048, 8])
+@pytest.mark.parametrize("n", [1, 2, 15, 17, 1000])
+def test_gram_padding(cuda, n, run_block):
+    """torch._int_mm's shape rules (rows > 16, multiples of 8) are met by
+    padding E, on one page or on many pages of a few runs each."""
+    from finch_tpu_torch.parallel import mxu_dist
+
+    H, L = mxu_dist.pack_db(_dist_db(n, n, pool=100 if n < 20 else 3000))
+    got = mxu_dist.all_pairs_common(H, L, run_block=run_block, device="cuda")
+    want = mxu_dist.all_pairs_common(H, L, device="cpu")
+    assert np.array_equal(got, want)
+    if n >= 15:
+        assert (want[~np.eye(n, dtype=bool)] > 0).any()
+
+
+@pytest.mark.parametrize("scale", [0.0, 0.5])
+def test_stats_above_2_63(cuda, scale):
+    """i/j and the scaled tail order hashes >= 2^63 as u64 on the card."""
+    from finch_tpu_torch.parallel import mxu_dist
+
+    H, L = mxu_dist.pack_db(_dist_db(3, 40) + [np.empty(0, np.uint64)])
+    assert (H[H != MAX] >= np.uint64(1 << 63)).mean() > 0.2
+    want = mxu_dist.all_pairs_stats(H, L, scale=scale, device="cpu")
+    got = mxu_dist.all_pairs_stats(H, L, scale=scale, device="cuda")
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    th = np.concatenate([mxu_dist._sketch_maxima(H, L), H[0, :5],
+                         np.array([0, 1 << 63], dtype=np.uint64)])
+    assert np.array_equal(mxu_dist.below_counts_device(H, L, th,
+                                                       device="cuda"),
+                          mxu_dist._below_counts(H, L, th))
+
+
+def test_survivors_order(cuda):
+    """The survivors' rows on the card equal the CPU's, in ref-major
+    order (compared after the exact f64 recheck: the f32 candidate test
+    may round differently on the two devices)."""
+    from finch_tpu_torch import cli
+    from finch_tpu_torch.parallel import mxu_dist
+
+    sk = _dist_db(4, 300, kmax=48, pool=400)
+    H, L = mxu_dist.pack_db(sk)
+    names = [f"s{i}" for i in range(len(sk))]
+    for d in (0.1, 0.3):
+        rows = {}
+        for dev in ("cuda", "cpu"):
+            iq, jr, c, i, j = mxu_dist.all_pairs_survivors(
+                H, L, 0.0, 21.0, d, device=dev)
+            assert (np.diff(jr * len(sk) + iq) > 0).all()
+            r = cli._finish_gram_rows(c, i, j, iq, jr, names, 21.0, d)
+            rows[dev] = (r._iq, r._jr, r._common, r._total, r._mash)
+        for g, w in zip(rows["cuda"], rows["cpu"]):
+            assert np.array_equal(g, w)
+        assert len(rows["cuda"][0]) > 0
+
+
+def test_tile_engine_partial_tile(cuda):
+    """Query-vs-DB tiles on the card: 16 queries of 64-hash sketches give
+    a 4096-ref tile, and 10,001 refs end in a partial one."""
+    from finch_tpu_torch.parallel import sharded_dist
+
+    db = _dist_db(5, 10_001, kmax=64, pool=20_000)
+    queries = db[:15] + [np.empty(0, np.uint64)]
+    assert sharded_dist._pick_tile(16, 64) == 4096
+    for scale in (0.0, 0.5):
+        got = sharded_dist.all_vs_all_arrays(queries, db, scale=scale,
+                                             device="cuda")
+        want = sharded_dist.all_vs_all_arrays(queries, db, scale=scale,
+                                              device="cpu")
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
