@@ -16,7 +16,6 @@ import stat
 from typing import List, Optional, Sequence
 
 from finch_tpu_torch.core.sketch import Sketch
-from finch_tpu_torch.errors import FinchMessageError
 from finch_tpu_torch.models.allcounts import AllCountsEngine
 from finch_tpu_torch.models.engine import (_finalize_arrays,
                                            kmercounts_from_arrays,
@@ -52,8 +51,18 @@ def _choose_reader(source, k: int, canonical: bool, batch_size: int,
     whenever more than one core is available; the plain serial parser
     otherwise (and for stdin or a FIFO, whose fd streams with O(1) memory).
     Either way the k-mer stream and totals are identical."""
-    from finch_tpu_torch.native import StreamingParallelReader
+    from finch_tpu_torch.native import StreamingParallelReader, XWideReader
 
+    if k > 63:
+        # arbitrary k (the reference hashes byte windows of any k,
+        # mash.rs:73-79): run-mode parser + host byte-window canonicalizer
+        return XWideReader(source, k=k, canonical=canonical,
+                           batch_size=batch_size)
+    if k > 31:
+        # wide k (32..=63) streams through the serial reader's two-word
+        # path; the parallel pipeline's chunk layout is single-word
+        return KmerReader(source, k=k, canonical=canonical,
+                          batch_size=batch_size)
     if source == "-" or _is_stream(source):
         return KmerReader(source, k=k, canonical=canonical,
                           batch_size=batch_size, composite=composite)
@@ -75,6 +84,8 @@ def _fused_native_ok(source, sketch_params: SketchParams, backend: str,
     path, and the scheme folds by hash (not AllCounts)."""
     if sketch_params.sketch_type == "none":
         return False
+    if sketch_params.k > 31:
+        return False  # wide k streams through the two-word serial path
     if isinstance(source, (bytes, bytearray, memoryview)):
         return False
     if source == "-" or _is_stream(source):
@@ -96,9 +107,6 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
     device steps per tier)."""
     from finch_tpu_torch.utils import get_meter, metrics_enabled, report
 
-    if sketch_params.k > 31:
-        raise FinchMessageError("finch_tpu_torch supports k <= 31; wide k "
-                                "is not ported yet (use finch_tpu)")
     if backend in ("auto", "torch"):
         resolve_device(device)
     filter_params = filters.copy()

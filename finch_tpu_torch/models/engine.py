@@ -19,10 +19,14 @@ mash  — bottom-K distinct hashes, counts = total stream occurrences
 scaled — all distinct hashes <= max_hash plus the smallest above-threshold
         hashes topped up to `size` total (scaled.rs:37-61)
 
+Payloads: one u64 code word for k <= 31, a (lo, hi) pair of word arrays
+for wide k (32..63), an (n, k) uint8 ASCII matrix for xwide k (>= 64).
+TorchEngine folds wide k on the card (ops/bottomk_wide.py) and xwide k on
+the host, as the JAX package does; HybridEngine keeps k > 31 on the host.
+
 Device rule: the device engines run on "cuda" unless the caller asks for
 "cpu"; without a card they raise (``resolve_device``) and never fall back
-to the CPU silently. Wide k (32..63) and the multi-device engine are not
-ported yet: TorchEngine refuses k > 31.
+to the CPU silently, at any k. The multi-device engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ from finch_tpu_torch import u64
 from finch_tpu_torch.core.sketch import KmerCount
 from finch_tpu_torch.errors import FinchMessageError
 from finch_tpu_torch.models.params import SketchParams, U32_MAX, U64_MAX
-from finch_tpu_torch.native import murmur3_packed, unpack_kmers
+from finch_tpu_torch.native import (murmur3_batch, murmur3_packed,
+                                    murmur3_packed_w, unpack_kmers,
+                                    unpack_kmers_w)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -67,25 +73,48 @@ def _retention_keep(params: SketchParams, h: np.ndarray) -> int:
     return len(h)
 
 
+def _is_bytes_payload(pk) -> bool:
+    """xwide (k >= 64) payloads are (n, k) uint8 ASCII matrices rather
+    than packed code words."""
+    return (isinstance(pk, np.ndarray) and pk.ndim == 2
+            and pk.dtype == np.uint8)
+
+
 def _finalize_arrays(params: SketchParams, h, c, e, pk):
     """Retention rule + u32 count saturation on arrays (kmers stay packed
-    until the final survivors are known). `pk` is one u64 code array."""
+    until the final survivors are known). `pk` is one u64 code array for
+    k <= 31, a (plo, phi) tuple of word arrays for 32 <= k <= 63, or an
+    (n, k) uint8 ASCII matrix for k >= 64."""
     h = np.asarray(h, dtype=np.uint64)
     c = np.asarray(c, dtype=np.uint64)
     e = np.asarray(e, dtype=np.uint64)
-    pk = np.asarray(pk, dtype=np.uint64)
+    if isinstance(pk, tuple):
+        pks = [np.asarray(w, dtype=np.uint64) for w in pk]
+    elif _is_bytes_payload(pk):
+        pks = [pk]
+    else:
+        pks = [np.asarray(pk, dtype=np.uint64)]
     real = c > 0
-    h, c, e, pk = h[real], c[real], e[real], pk[real]
+    h, c, e = h[real], c[real], e[real]
+    pks = [w[real] for w in pks]
     keep = _retention_keep(params, h)
-    h, c, e, pk = h[:keep], c[:keep], e[:keep], pk[:keep]
+    h, c, e = h[:keep], c[:keep], e[:keep]
+    pks = [w[:keep] for w in pks]
     c = np.minimum(c, np.uint64(U32_MAX)).astype(np.uint32)
     e = np.minimum(e, np.uint64(U32_MAX)).astype(np.uint32)
-    return h, c, e, pk
+    return h, c, e, (tuple(pks) if len(pks) == 2 else pks[0])
 
 
 def kmercounts_from_arrays(params: SketchParams, h, c, e, pk):
     """Materialize KmerCount objects (ascending hash) from arrays."""
-    kmer_bytes = unpack_kmers(np.asarray(pk, dtype=np.uint64), params.k)
+    if isinstance(pk, tuple):
+        kmer_bytes = unpack_kmers_w(np.asarray(pk[0], dtype=np.uint64),
+                                    np.asarray(pk[1], dtype=np.uint64),
+                                    params.k)
+    elif _is_bytes_payload(pk):
+        kmer_bytes = pk  # already ASCII windows
+    else:
+        kmer_bytes = unpack_kmers(np.asarray(pk, dtype=np.uint64), params.k)
     return [
         KmerCount(hash=int(h[i]), kmer=bytes(kmer_bytes[i]),
                   count=int(c[i]), extra_count=int(e[i]))
@@ -98,25 +127,29 @@ def _finalize(params: SketchParams, h, c, e, pk):
         params, *_finalize_arrays(params, h, c, e, pk))
 
 
-def _check_narrow(params: SketchParams, engine: str) -> None:
-    if params.k > 31:
-        raise FinchMessageError(
-            f"the {engine} engine of finch_tpu_torch supports k <= 31; "
-            "wide k is not ported yet (use finch_tpu)")
-
-
 class NumpyEngine:
-    """Exact host-side batch sketcher (k <= 31)."""
+    """Exact host-side batch sketcher."""
 
     def __init__(self, params: SketchParams):
-        _check_narrow(params, "numpy")
         self.params = params
         self.size = params.kmers_to_sketch
         self.max_hash = params.max_hash()
         self.h = np.empty(0, dtype=np.uint64)
         self.c = np.empty(0, dtype=np.uint64)
         self.e = np.empty(0, dtype=np.uint64)
-        self.pk = np.empty(0, dtype=np.uint64)
+        # payload: one word for k <= 31, (lo, hi) words for 32 <= k <= 63,
+        # an (n, k) ASCII byte matrix for k >= 64 (xwide)
+        self.xwide = params.k > 63
+        self.wide = 31 < params.k <= 63
+        if self.xwide:
+            self.pks = [np.empty((0, params.k), dtype=np.uint8)]
+        else:
+            self.pks = [np.empty(0, dtype=np.uint64)
+                        for _ in range(2 if self.wide else 1)]
+
+    @property
+    def pk(self):
+        return tuple(self.pks) if self.wide else self.pks[0]
 
     def _threshold(self) -> int:
         if self.params.sketch_type == "mash":
@@ -136,22 +169,35 @@ class NumpyEngine:
         return int(U64_MAX)
 
     def update(self, packed, rc: np.ndarray) -> None:
-        hashes = murmur3_packed(packed, self.params.k, self.params.hash_seed)
+        k, seed = self.params.k, self.params.hash_seed
+        if self.xwide:
+            kb = np.ascontiguousarray(packed, dtype=np.uint8)
+            hashes = murmur3_batch(kb, seed)
+            pk_words = [kb]
+        elif self.wide:
+            plo, phi = packed
+            hashes = murmur3_packed_w(plo, phi, k, seed)
+            pk_words = [np.asarray(plo, dtype=np.uint64),
+                        np.asarray(phi, dtype=np.uint64)]
+        else:
+            hashes = murmur3_packed(packed, k, seed)
+            pk_words = [np.asarray(packed, dtype=np.uint64)]
         thresh = self._threshold()
         if thresh < 0:
             mask = np.zeros(len(hashes), dtype=bool)
         else:
             mask = hashes <= np.uint64(thresh)
         hashes = hashes[mask]
-        pk = np.asarray(packed, dtype=np.uint64)[mask]
+        pk_words = [w[mask] for w in pk_words]
         rc = np.asarray(rc)[mask].astype(np.uint64)
 
         h = np.concatenate([self.h, hashes])
         c = np.concatenate([self.c, np.ones(len(hashes), dtype=np.uint64)])
         e = np.concatenate([self.e, rc])
-        pk = np.concatenate([self.pk, pk])
+        pks = [np.concatenate([s, w]) for s, w in zip(self.pks, pk_words)]
         order = np.argsort(h, kind="stable")
-        h, c, e, pk = h[order], c[order], e[order], pk[order]
+        h, c, e = h[order], c[order], e[order]
+        pks = [w[order] for w in pks]
         if len(h):
             boundary = np.empty(len(h), dtype=bool)
             boundary[0] = True
@@ -160,15 +206,15 @@ class NumpyEngine:
             h = h[idx]
             c = np.add.reduceat(c, idx)
             e = np.add.reduceat(e, idx)
-            pk = pk[idx]  # stable: first-seen kmer per hash
+            pks = [w[idx] for w in pks]  # stable: first-seen kmer per hash
         if self.params.sketch_type == "mash":
             keep = self.size
         else:
             below = int(np.searchsorted(h, np.uint64(self.max_hash),
                                         side="right"))
             keep = below + self.size
-        self.h, self.c, self.e, self.pk = h[:keep], c[:keep], e[:keep], \
-            pk[:keep]
+        self.h, self.c, self.e = h[:keep], c[:keep], e[:keep]
+        self.pks = [w[:keep] for w in pks]
 
     def finalize(self):
         return _finalize(self.params, self.h, self.c, self.e, self.pk)
@@ -184,19 +230,36 @@ class NativeEngine:
     def __init__(self, params: SketchParams):
         from finch_tpu_torch.native import NativeFold
 
-        _check_narrow(params, "native")
         self.params = params
+        self._wide_impl = None
+        if params.k > 31:
+            # the fold table stores one u64 payload word (a k <= 31 speed
+            # optimization); wide and xwide k run the NumPy fold instead,
+            # with the same exact semantics
+            self._fold = None
+            self._wide_impl = NumpyEngine(params)
+            return
         scheme = 1 if params.sketch_type == "scaled" else 0
         max_hash = params.max_hash() if scheme else 0
         self._fold = NativeFold(scheme, params.k, params.hash_seed,
                                 params.kmers_to_sketch, max_hash or 0)
 
     def update(self, packed, rc: np.ndarray) -> None:
+        if self._wide_impl is not None:
+            self._wide_impl.update(packed, rc)
+            return
         self._fold.fold(packed, rc)
 
     def state_arrays(self):
         """(h, c, e, pk) retained-candidate arrays, ascending hash, with
-        the retention rule applied (the engine migration input)."""
+        the retention rule applied (the engine migration input); pk has
+        NumpyEngine.pk's form."""
+        if self._wide_impl is not None:
+            w = self._wide_impl
+            keep = _retention_keep(self.params, w.h)
+            pks = [x[:keep] for x in w.pks]
+            return (w.h[:keep], w.c[:keep], w.e[:keep],
+                    tuple(pks) if len(pks) == 2 else pks[0])
         h, c, e, pk = self._fold.result()
         keep = _retention_keep(self.params, h)
         return h[:keep], c[:keep], e[:keep], pk[:keep]
@@ -209,24 +272,33 @@ class NativeEngine:
 
 
 class TorchEngine:
-    """Device batch sketcher: fixed-capacity state on `device`, one
-    bottomk.sketch_step per batch of up to `batch_size` k-mers (k <= 31;
-    the extract kernel runs for k <= 28 on batches of >= 128k lanes, in
-    the JAX package's default configuration: the weighted extract and
-    tiers D and D2 join it for k <= 25).
+    """Device batch sketcher: fixed-capacity state on `device`, one step
+    per batch of up to `batch_size` k-mers. For k <= 31 the step is
+    bottomk.sketch_step (the extract kernel runs for k <= 28 on batches of
+    >= 128k lanes, in the JAX package's default configuration: the
+    weighted extract and tiers D and D2 join it for k <= 25); for
+    32 <= k <= 63 it is bottomk_wide.sketch_step; k >= 64 folds on the
+    host (a NumpyEngine), as the JAX package does.
 
-    `stats` counts the tier each step took and the host syncs it made."""
-
-    wants_composite = True
+    `stats` counts the tier each step took (`wide` for wide steps) and the
+    host syncs it made."""
 
     def __init__(self, params: SketchParams, batch_size: int = 1 << 21,
                  device="cuda"):
         from finch_tpu_torch.ops import bottomk
 
-        _check_narrow(params, "torch")
-        self._bottomk = bottomk
         self.device = resolve_device(device)
         self.params = params
+        self.stats: dict = {}
+        self.wants_composite = params.k <= 31
+        self._xwide_impl = None
+        if params.k > 63:
+            # xwide payloads are per-k-mer byte windows, not the fixed
+            # words the device state carries: fold on the host
+            self._xwide_impl = NumpyEngine(params)
+            return
+        self._bottomk = bottomk
+        self.wide = params.k > 31
         self.size = params.kmers_to_sketch
         self.max_hash = params.max_hash()
         self.batch_size = batch_size
@@ -236,9 +308,16 @@ class TorchEngine:
             self.capacity = max(1, self.size)
         else:
             self.capacity = max(2 * self.size, 1 << 12)
-        self.state = bottomk.empty_state(self.capacity, device=self.device)
+        if self.wide:
+            from finch_tpu_torch.ops import bottomk_wide
+
+            self._bkw = bottomk_wide
+            self.state = bottomk_wide.empty_state(self.capacity,
+                                                  device=self.device)
+        else:
+            self.state = bottomk.empty_state(self.capacity,
+                                             device=self.device)
         self._mh = self.max_hash if self.max_hash is not None else 0
-        self.stats: dict = {}
 
     def _pad(self, arr: np.ndarray) -> torch.Tensor:
         n = len(arr)
@@ -248,10 +327,44 @@ class TorchEngine:
         return u64.from_numpy(out, self.device)
 
     def update(self, packed, rc: np.ndarray) -> None:
-        n = len(packed)
-        for off in range(0, n, self.batch_size):
-            self._step(packed[off: off + self.batch_size],
-                       rc[off: off + self.batch_size])
+        if self._xwide_impl is not None:
+            self._xwide_impl.update(packed, rc)
+            return
+        bs = self.batch_size
+        if self.wide:
+            plo, phi = packed
+            for off in range(0, len(plo), bs):
+                self._step_wide(plo[off: off + bs], phi[off: off + bs],
+                                rc[off: off + bs])
+            return
+        for off in range(0, len(packed), bs):
+            self._step(packed[off: off + bs], rc[off: off + bs])
+
+    def _step_wide(self, plo, phi, rc) -> None:
+        """One wide step; a scaled run reads `below` (one host sync) and
+        grows the state and redoes the step when it would overflow."""
+        bkw = self._bkw
+        plo_d = self._pad(np.asarray(plo, dtype=np.uint64))
+        phi_d = self._pad(np.asarray(phi, dtype=np.uint64))
+        rc_d = self._pad(np.asarray(rc, dtype=np.uint8))
+        is_scaled = self.params.sketch_type == "scaled"
+        while True:
+            new_state, below = bkw.sketch_step(
+                self.state, plo_d, phi_d, rc_d, len(plo), self._mh,
+                k=self.params.k, seed=self.params.hash_seed,
+                has_max_hash=is_scaled, stats=self.stats)
+            if not is_scaled:
+                self.state = new_state
+                return
+            below = int(below)
+            self.stats["syncs"] = self.stats.get("syncs", 0) + 1
+            if below + self.size <= self.capacity:
+                self.state = new_state
+                return
+            # grow capacity and redo from the unmodified previous state
+            new_cap = max(self.capacity * 2, below + self.size)
+            self.state = bkw.grow_state(self.state, new_cap)
+            self.capacity = new_cap
 
     def _step(self, chunk_pk, chunk_rc) -> None:
         bk = self._bottomk
@@ -282,15 +395,22 @@ class TorchEngine:
             self.capacity = new_cap
 
     def _host_state(self):
+        if self.wide:
+            h, c, e, plo, phi = self._bkw.state_arrays(self.state)
+            return h, c, e, (plo, phi)
         state, _ = self._bottomk.flush_state(
             self.state, self._mh, k=self.params.k,
             seed=self.params.hash_seed)
         return tuple(u64.to_numpy(t) for t in state[:4])
 
     def finalize(self):
+        if self._xwide_impl is not None:
+            return self._xwide_impl.finalize()
         return _finalize(self.params, *self._host_state())
 
     def finalize_arrays(self):
+        if self._xwide_impl is not None:
+            return self._xwide_impl.finalize_arrays()
         return _finalize_arrays(self.params, *self._host_state())
 
 
@@ -300,14 +420,13 @@ class HybridEngine:
     Small inputs finish on the host; once the stream crosses
     `switch_after` k-mers, the host state — already the exact sorted
     bottom-k with counts — seeds a device state (bottomk.state_from_numpy)
-    and sketching continues on the card. Bit-identical either way."""
-
-    wants_composite = True
+    and sketching continues on the card. Bit-identical either way. Wide
+    and xwide k (k > 31) stay on the host fold, as in the JAX package."""
 
     def __init__(self, params: SketchParams, batch_size: int = 1 << 21,
                  switch_after: int = 4 << 20, device="cuda"):
-        _check_narrow(params, "hybrid")
         self.params = params
+        self.wants_composite = params.k <= 31
         self.batch_size = batch_size
         self.switch_after = switch_after
         self.device = resolve_device(device)
@@ -345,6 +464,11 @@ class HybridEngine:
     def update(self, packed, rc: np.ndarray) -> None:
         if self._dev is not None:
             self._dev.update(packed, rc)
+            return
+        if self.params.k > 31:
+            # wide k stays on the host fold (NativeEngine -> NumPy); the
+            # migration is a narrow-k throughput path
+            self._host.update(packed, rc)
             return
         if packed.dtype == np.uint32:
             # composite planes: decode for the host fold

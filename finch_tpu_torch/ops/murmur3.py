@@ -9,8 +9,10 @@ lanes, whose `*` and `+` wrap mod 2**64 exactly as u64 arithmetic does
 (see ``finch_tpu_torch.u64``). The JAX package's u32-pair arithmetic was a
 TPU workaround and has no counterpart here.
 
-This is plain PyTorch: it serves the flush rehash and the plain version of
-the extract kernel (ops/extract.py).
+This is plain PyTorch: it serves the flush rehash, the plain version of
+the extract kernel (ops/extract.py) and the wide step (ops/bottomk_wide.py),
+whose two-word codes ``packed2_to_words`` reads; the JAX package's
+u32-quarter form of them (``packed2_to_u32_words``) has no counterpart.
 """
 
 from __future__ import annotations
@@ -42,6 +44,26 @@ def packed_to_words(packed: torch.Tensor, k: int):
         acc = torch.zeros_like(packed)
         for j in range(w * 8, min(k, w * 8 + 8)):
             code = shr(packed, 2 * (k - 1 - j)) & 3
+            byte = (_BASE_LUT >> (code << 3)) & 0xFF
+            acc = acc | (byte << (8 * (j - w * 8)))
+        words.append(acc)
+    return words
+
+
+def packed2_to_words(plo: torch.Tensor, phi: torch.Tensor, k: int):
+    """``packed_to_words`` for wide two-word codes (32 <= k <= 63): `plo`
+    holds bits [0, 64) of the code and `phi` bits [64, 2k). Base j's code
+    sits at shift 2(k-1-j), which is even, so it lies wholly in one word."""
+    nwords = 2 * ((k + 15) // 16)
+    words = []
+    for w in range(nwords):
+        acc = torch.zeros_like(plo)
+        for j in range(w * 8, min(k, w * 8 + 8)):
+            shift = 2 * (k - 1 - j)
+            if shift >= 64:
+                code = shr(phi, shift - 64) & 3
+            else:
+                code = shr(plo, shift) & 3
             byte = (_BASE_LUT >> (code << 3)) & 0xFF
             acc = acc | (byte << (8 * (j - w * 8)))
         words.append(acc)
@@ -103,3 +125,15 @@ def hash_packed_kmers(packed: torch.Tensor, *, k: int,
     if packed.dtype != torch.int64:
         raise FinchMessageError("packed k-mer codes must be int64 lanes")
     return murmur3_x64_words(packed_to_words(packed, k), k, seed)
+
+
+def hash_packed_kmers_wide(plo: torch.Tensor, phi: torch.Tensor, *, k: int,
+                           seed: int = 0) -> torch.Tensor:
+    """u64 hash lanes (int64 bit patterns) for wide two-word packed codes
+    (32 <= k <= 63); the counterpart of
+    ``finch_tpu.ops.murmur3.hash_packed_kmers_wide``."""
+    if not 32 <= k <= 63:
+        raise FinchMessageError("wide murmur path supports k in 32..=63")
+    if plo.dtype != torch.int64 or phi.dtype != torch.int64:
+        raise FinchMessageError("packed k-mer codes must be int64 lanes")
+    return murmur3_x64_words(packed2_to_words(plo, phi, k), k, seed)

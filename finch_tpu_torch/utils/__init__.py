@@ -1,4 +1,4 @@
 from finch_tpu_torch.utils.metrics import (Meter, get_meter, metrics_enabled,
-                                           report)
+                                           report, trace)
 
-__all__ = ["Meter", "get_meter", "metrics_enabled", "report"]
+__all__ = ["Meter", "get_meter", "metrics_enabled", "report", "trace"]

@@ -1,14 +1,22 @@
-"""Observability: per-stage throughput meters.
+"""Observability: per-stage throughput meters and the profiler hook.
 
 The reference has no tracing/metrics subsystem (README.md:112-121 documents
 external profiling only); for a production deployment we need k-mers/s
-per stage as a first-class feature (SURVEY §5).
+per stage and device-trace capture as first-class features (SURVEY §5).
 
 Meters are process-local and cheap (two floats + a counter per stage);
 they are best-effort under concurrency — parallel streams sharing a stage
 meter overlap their intervals, so treat rates as indicative, not exact.
-Enable wall-clock reporting with FINCH_TPU_METRICS=1. The JAX package's
-device-trace hook (``finch_tpu.utils.trace``) has no counterpart here yet.
+Enable wall-clock reporting with FINCH_TPU_METRICS=1; capture a
+torch.profiler trace of a region with:
+
+    with finch_tpu_torch.utils.trace("/tmp/finch-trace") as prof:
+        sketch_files(...)
+
+which writes a Chrome trace (open it in chrome://tracing or Perfetto)
+into the directory; `prof` is the torch.profiler.profile, for reading its
+events in process. The device phases run in ``record_function`` ranges
+named ``dist.<phase>`` and ``wide.<phase>``.
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ import sys
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator
+
+
+_TRACES = 0
 
 
 def metrics_enabled() -> bool:
@@ -75,3 +86,26 @@ def report(file=None) -> None:
         if meter.calls:
             print(f"[finch_tpu_torch] {meter.line()}", file=out)
 
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator["torch.profiler.profile"]:
+    """Profile the enclosed region with torch.profiler: host operators,
+    and the card's kernels when a card is present. On exit it writes
+    ``finch_trace_<pid>_<n>.json`` (Chrome trace format) into log_dir.
+
+    Unlike the JAX package's hook, a profiler that fails raises: it never
+    turns into a silent no-op."""
+    global _TRACES
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    _TRACES += 1
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"finch_trace_{os.getpid()}_{_TRACES}.json"))

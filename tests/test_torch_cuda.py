@@ -456,3 +456,43 @@ def test_tile_engine_partial_tile(cuda):
                                               device="cpu")
         for g, w in zip(got, want):
             assert np.array_equal(g, w)
+
+
+# --- the wide step (32 <= k <= 63): PyTorch calls only, card vs CPU ---
+
+def _wide_batches(k, nbatch, b, seed):
+    rng = np.random.default_rng(seed + k)
+    pool_lo = rng.integers(0, 2**64, size=b, dtype=np.uint64)
+    pool_hi = rng.integers(0, 2 ** (2 * k - 64), size=b, dtype=np.uint64)
+    for _ in range(nbatch):
+        idx = rng.integers(0, b, size=b - 12345)  # runs; a padded tail
+        yield ((pool_lo[idx], pool_hi[idx]),
+               rng.integers(0, 2, size=len(idx), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("k", [32, 51, 63])
+def test_wide_step_card_equals_cpu(cuda, k, scaled):
+    """TorchEngine's wide step on 2M-lane batches: the raw state (pads
+    included) and the capacity after every batch equal the CPU's; the
+    scaled case grows its state."""
+    from finch_tpu_torch.models.engine import TorchEngine
+    from finch_tpu_torch.models.params import SketchParams
+    from finch_tpu_torch.ops import bottomk_wide
+
+    params = (SketchParams.scaled(kmers_to_sketch=1000, scale=0.01,
+                                  kmer_length=k) if scaled else
+              SketchParams.mash(kmers_to_sketch=200_000, final_size=1000,
+                                kmer_length=k, no_strict=True))
+    engines = [TorchEngine(params, device=d) for d in (cuda, "cpu")]
+    cap0 = engines[0].capacity
+    for packed, rc in _wide_batches(k, 2, 1 << 21, 5):
+        for e in engines:
+            e.update(packed, rc)
+        got, want = (bottomk_wide.state_to_numpy(e.state) for e in engines)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert engines[0].capacity == engines[1].capacity
+    assert engines[0].stats["wide"] >= 2
+    if scaled:
+        assert engines[0].capacity > cap0

@@ -137,9 +137,20 @@ def test_no_card_raises(monkeypatch):
     assert len(s.hashes) == 10
 
 
-def test_torch_engine_refuses_wide_k():
-    with pytest.raises(FinchMessageError, match="k <= 31"):
-        eng.TorchEngine(ft.SketchParams.mash(kmer_length=32), device="cpu")
+def test_torch_engine_refuses_wide_k(monkeypatch):
+    """Wide and xwide k are ported: TorchEngine takes them on the CPU when
+    asked (the wide step on the device state, xwide on the host fold) and
+    refuses them only where it refuses any k, without a card."""
+    wide = eng.TorchEngine(ft.SketchParams.mash(kmer_length=32),
+                           device="cpu")
+    assert not wide.wants_composite and len(wide.state) == 5
+    xwide = eng.TorchEngine(ft.SketchParams.mash(kmer_length=101),
+                            device="cpu")
+    assert isinstance(xwide._xwide_impl, eng.NumpyEngine)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in (32, 63, 101):
+        with pytest.raises(FinchMessageError, match="no CUDA device"):
+            eng.TorchEngine(ft.SketchParams.mash(kmer_length=k))
 
 
 @pytest.mark.parametrize("gz", [False, True], ids=["plain", "gzip"])
