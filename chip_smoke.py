@@ -38,6 +38,18 @@ card, and then drives two paths:
   from torch.profiler. Then the full-matrix path at 4,000 sketches, and
   the CLI's `dist -p` over a 128-sketch file against --backend numpy.
   [dist] launches none of the kernels below: the distance path has none.
+* [wide] sketches [main]'s isolate at k = 51 (sourmash's largest standard
+  k; about 100M 51-mers) at the CLI defaults otherwise, three ways: the
+  torch backend on the card (the two-word wide step, ops/bottomk_wide.py),
+  the native host fold and auto (which keeps k > 31 on the host). The
+  three .sk byte strings must be identical. One more torch run under the
+  port's profiler hook (utils.trace) gives the card's busy share and each
+  wide.<phase> range's device time. Then the first 8 batches of 2M lanes
+  fold with TorchEngine on the card and on the CPU, mash and scaled (the
+  scaled state grows): the raw states must be bit-equal after every
+  batch. Last, k = 101 over the first 20,000 reads: torch (a host fold by
+  design) and native must give the same bytes. The wide path reaches no
+  TPU kernel, so it has no hand kernel and launches none of the four.
 
 Each kernel's launch counter is zeroed just before each run and read just
 after, and must equal the steps that by the tier switch's rules launch
@@ -951,7 +963,8 @@ def phase_main_path(tmp: str, seed: int) -> dict:
         raise AssertionError(f"expected {params.expected_size()} hashes, "
                              f"got {len(sk.hashes)}")
 
-    out = {"native_s": native_s, "kmers": kmers, "launches": {}}
+    out = {"native_s": native_s, "kmers": kmers, "launches": {},
+           "fastq": fq}
     for backend in ("auto", "torch"):
         reset_launches()
         got, _, secs, stats = run(backend, "cuda")
@@ -1557,6 +1570,192 @@ def dist_full_matrix(H, sks, G) -> dict:
     return {"n": n, "rows": len(full)}
 
 
+WIDE_K = 51              # sourmash's standard k: 21, 31 and 51
+XWIDE_K = 101
+XWIDE_READS = 20_000
+WIDE_HOLD_BATCHES = 8    # 2M-lane batches folded on the card and the CPU
+WIDE_PHASES = ("hash", "select", "batch_sort", "batch_runs", "merge_sort",
+               "merge_runs")
+WIDE_LIBRARY_CALLS = ("aten::sort", "aten::cumsum", "aten::searchsorted",
+                      "aten::index", "aten::cat", "aten::where")
+
+
+def wide_profile(fn, log_dir: str) -> dict:
+    """One more run of fn under the port's profiler hook (utils.trace):
+    each `wide.<phase>` range's calls, host ms and device ms, the named
+    PyTorch calls' device ms, and the card's busy share of the wall."""
+    from torch.autograd import DeviceType
+
+    from finch_tpu_torch.utils import trace
+
+    with trace(log_dir) as prof:
+        t = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t
+    phases = {n: [0, 0.0, 0.0] for n in WIDE_PHASES}
+    calls = {n: [0, 0.0] for n in WIDE_LIBRARY_CALLS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name.startswith("wide."):
+            p = phases.setdefault(e.name[5:], [0, 0.0, 0.0])
+            p[0] += 1
+            p[1] += e.cpu_time_total / 1e3
+            p[2] += e.device_time_total / 1e3
+        elif e.name in calls:
+            calls[e.name][0] += 1
+            calls[e.name][1] += e.device_time_total / 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not e.key.startswith("wide."))
+    traces = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"[wide] trace() wrote {traces}")
+    return {"wall_s": wall, "busy_s": busy / 1e6, "phases": phases,
+            "library": calls, "trace_bytes": os.path.getsize(
+                os.path.join(log_dir, traces[0]))}
+
+
+def _wide_states_equal(what: str, engines) -> None:
+    from finch_tpu_torch.ops import bottomk_wide
+
+    card, cpu = (bottomk_wide.state_to_numpy(e.state) for e in engines)
+    if engines[0].capacity != engines[1].capacity or any(
+            a.shape != b.shape or (a != b).any() for a, b in zip(card, cpu)):
+        raise AssertionError(f"[wide] {what}: the card's state differs "
+                             "from the CPU's")
+
+
+def phase_wide(fq: str, tmp: str) -> dict:
+    """Wide and xwide k through the port's entry points on [main]'s
+    isolate: .sk bytes across backends, the wide step's device phases,
+    the card's states against the CPU's, and the xwide route."""
+    import numpy as np
+    import torch
+
+    from finch_tpu_torch import cli
+    from finch_tpu_torch.core.sketching import sketch_stream
+    from finch_tpu_torch.models.engine import TorchEngine
+    from finch_tpu_torch.models.params import SketchParams
+    from finch_tpu_torch.native import KmerReader
+    from finch_tpu_torch.serialization.json_sk import \
+        multisketch_to_json_bytes
+
+    def cli_params(path: str, k: int, extra=()):
+        args = cli.build_cli().parse_args(
+            ["sketch", "-k", str(k), *extra, path, "-o", "unused"])
+        k = cli.get_kmer_length(args)
+        filters = cli.parse_filter_options(args, k)
+        return cli.parse_sketch_options(args, k, filters.filter_on), filters
+
+    def run(path, params, filters, backend: str):
+        engines = []
+        t = time.perf_counter()
+        sk = sketch_stream(path, path, params, filters, backend=backend,
+                           device="cuda", engine_out=engines)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        stats = dict(getattr(engines[0], "stats", {})) if engines else {}
+        return multisketch_to_json_bytes([sk]), sk, secs, stats, engines
+
+    t_phase = time.perf_counter()
+    params, filters = cli_params(fq, WIDE_K)
+    out = {"launches": {}}
+    reset_launches()
+    ref, sk, secs, _, _ = run(fq, params, filters, "native")
+    kmers = sk.num_valid_kmers
+    if len(sk.hashes) != params.expected_size():
+        raise AssertionError(f"[wide] expected {params.expected_size()} "
+                             f"hashes, got {len(sk.hashes)}")
+    out["native"] = {"s": secs}
+    log(f"[wide] k={WIDE_K} native host fold: {kmers} k-mers in {secs:.2f} "
+        f"s ({kmers / secs:.4g} k-mers/s)")
+    for backend in ("torch", "auto"):
+        got, _, secs, stats, engines = run(fq, params, filters, backend)
+        if got != ref:
+            raise AssertionError(f"[wide] {backend} sketch differs from "
+                                 "native")
+        if backend == "torch" and (stats.get("wide", 0) < 1
+                                   or stats.get("syncs", 0)):
+            raise AssertionError(f"[wide] torch took no wide step or "
+                                 f"synced on a mash run: {stats}")
+        if backend == "auto" and getattr(engines[0], "_dev", None):
+            raise AssertionError("[wide] auto left the host fold")
+        out[backend] = {"s": secs, "stats": stats}
+        log(f"[wide] k={WIDE_K} {backend} on cuda: {kmers} k-mers in "
+            f"{secs:.2f} s ({kmers / secs:.4g} k-mers/s); wide steps "
+            f"{stats.get('wide', 0)}, host syncs {stats.get('syncs', 0)}; "
+            f".sk identical to native")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"[wide] the wide path launched {launches}")
+    prof = wide_profile(lambda: run(fq, params, filters, "torch"),
+                        os.path.join(tmp, "wide_trace"))
+    out["profile"] = prof
+    log("[wide] torch run under utils.trace: " + "; ".join(
+        f"wide.{n} {v[2]:.3f} ms dev / {v[1]:.3f} ms host / {v[0]} calls"
+        for n, v in prof["phases"].items()))
+    log("[wide] PyTorch calls: " + ", ".join(
+        f"{n[6:]} {c[1]:.3f} ms dev / {c[0]}"
+        for n, c in prof["library"].items() if c[0]))
+    if prof["busy_s"]:
+        log(f"[wide] card busy {prof['busy_s']:.3f} s of the profiled wall "
+            f"{prof['wall_s']:.3f} s "
+            f"({100 * prof['busy_s'] / prof['wall_s']:.1f}%); Chrome trace "
+            f"{prof['trace_bytes']} B")
+    else:
+        log("[wide] card busy: not measured (no device time)")
+
+    # the card against the CPU: the first batches of 2M lanes, mash (the
+    # CLI's parameters) and scaled with growth, raw states after each
+    t = time.perf_counter()
+    batches = []
+    for packed, rc in KmerReader(fq, k=WIDE_K, canonical=True,
+                                 batch_size=1 << 21):
+        batches.append((packed, rc))
+        if len(batches) == WIDE_HOLD_BATCHES:
+            break
+    scaled = SketchParams.scaled(kmers_to_sketch=1000, scale=0.001,
+                                 kmer_length=WIDE_K)
+    for name, p in (("mash", params), ("scaled", scaled)):
+        engines = [TorchEngine(p, device=d) for d in ("cuda", "cpu")]
+        cap0 = engines[0].capacity
+        for i, (packed, rc) in enumerate(batches):
+            for e in engines:
+                e.update(packed, rc)
+            _wide_states_equal(f"{name} batch {i}", engines)
+        if name == "scaled" and engines[0].capacity <= cap0:
+            raise AssertionError("[wide] the scaled state did not grow")
+        log(f"[wide] {name}: {len(batches)} batches of 2M lanes, card == "
+            f"CPU raw state after each (capacity {cap0} -> "
+            f"{engines[0].capacity}, steps {engines[0].stats})")
+    log(f"[wide] card vs CPU {time.perf_counter() - t:.1f} s")
+
+    # xwide: k = 101 over the first reads, on the host by design
+    t = time.perf_counter()
+    head = os.path.join(tmp, "isolate_head.fastq")
+    with open(fq, "rb") as f:
+        data = f.read(XWIDE_READS * (10 + 150 + 3 + 150 + 1))
+    with open(head, "wb") as f:
+        f.write(data)
+    xparams, xfilters = cli_params(head, XWIDE_K,
+                                   ["--no-filter", "--err-filter", "0.5"])
+    xref, xsk, _, _, _ = run(head, xparams, xfilters, "native")
+    xgot, _, _, _, engines = run(head, xparams, xfilters, "torch")
+    if xgot != xref or engines[0]._xwide_impl is None:
+        raise AssertionError("[wide] xwide torch differs from native or "
+                             "left the host fold")
+    if len(xsk.hashes[0].kmer) != XWIDE_K or not np.all(
+            [len(h.kmer) == XWIDE_K for h in xsk.hashes]):
+        raise AssertionError("[wide] xwide k-mers are not 101 bases")
+    log(f"[wide] k={XWIDE_K} over {XWIDE_READS} reads "
+        f"({xsk.num_valid_kmers} k-mers): torch (host fold) == native, "
+        f"{len(xref)} B, {time.perf_counter() - t:.1f} s")
+    log(f"[wide] phase {time.perf_counter() - t_phase:.1f} s")
+    out["kmers"] = kmers
+    return out
+
+
 def profile_torch_run(fn) -> None:
     """One more torch-backend run under torch.profiler (outside the timed
     runs; the profiler slows the host): device-busy share and the device
@@ -1631,6 +1830,7 @@ def main(argv=None) -> int:
         main_path = phase_main_path(tmp, opts.seed)
         dup = phase_dup(opts.seed)
         phase_dist(tmp, opts.seed)
+        phase_wide(main_path["fastq"], tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
