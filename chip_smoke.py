@@ -1630,7 +1630,6 @@ def phase_wide(fq: str, tmp: str) -> dict:
     """Wide and xwide k through the port's entry points on [main]'s
     isolate: .sk bytes across backends, the wide step's device phases,
     the card's states against the CPU's, and the xwide route."""
-    import numpy as np
     import torch
 
     from finch_tpu_torch import cli
@@ -1745,8 +1744,7 @@ def phase_wide(fq: str, tmp: str) -> dict:
     if xgot != xref or engines[0]._xwide_impl is None:
         raise AssertionError("[wide] xwide torch differs from native or "
                              "left the host fold")
-    if len(xsk.hashes[0].kmer) != XWIDE_K or not np.all(
-            [len(h.kmer) == XWIDE_K for h in xsk.hashes]):
+    if any(len(h.kmer) != XWIDE_K for h in xsk.hashes):
         raise AssertionError("[wide] xwide k-mers are not 101 bases")
     log(f"[wide] k={XWIDE_K} over {XWIDE_READS} reads "
         f"({xsk.num_valid_kmers} k-mers): torch (host fold) == native, "

@@ -37,7 +37,6 @@ here meet: an entry with count 0 (a pad) has hash u64::MAX.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -182,11 +181,6 @@ def state_arrays(state):
 def state_to_numpy(state):
     """The raw state as numpy uint64 arrays, pads included."""
     return tuple(u64.to_numpy(x) for x in state)
-
-
-def state_from_numpy(arrays, device="cpu"):
-    return tuple(u64.from_numpy(np.asarray(a, dtype=np.uint64), device)
-                 for a in arrays)
 
 
 def merge_states(states):

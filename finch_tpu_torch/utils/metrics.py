@@ -29,9 +29,6 @@ from dataclasses import dataclass, field
 from typing import Dict, Iterator
 
 
-_TRACES = 0
-
-
 def metrics_enabled() -> bool:
     return os.environ.get("FINCH_TPU_METRICS", "") not in ("", "0")
 
@@ -92,11 +89,10 @@ def report(file=None) -> None:
 def trace(log_dir: str) -> Iterator["torch.profiler.profile"]:
     """Profile the enclosed region with torch.profiler: host operators,
     and the card's kernels when a card is present. On exit it writes
-    ``finch_trace_<pid>_<n>.json`` (Chrome trace format) into log_dir.
+    ``finch_trace_<pid>_<ns>.json`` (Chrome trace format) into log_dir.
 
     Unlike the JAX package's hook, a profiler that fails raises: it never
     turns into a silent no-op."""
-    global _TRACES
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -106,6 +102,5 @@ def trace(log_dir: str) -> Iterator["torch.profiler.profile"]:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         yield prof
-    _TRACES += 1
     prof.export_chrome_trace(os.path.join(
-        log_dir, f"finch_trace_{os.getpid()}_{_TRACES}.json"))
+        log_dir, f"finch_trace_{os.getpid()}_{time.time_ns()}.json"))

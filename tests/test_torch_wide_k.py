@@ -62,21 +62,22 @@ def _scaled(k, n, scale):
     return dict(kind="scaled", kmers_to_sketch=n, scale=scale, kmer_length=k)
 
 
-def _params(mod, spec):
+def _params(cls, spec):
+    """cls is either package's SketchParams."""
     spec = dict(spec)
-    return getattr(mod.SketchParams, spec.pop("kind"))(**spec)
+    return getattr(cls, spec.pop("kind"))(**spec)
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_tuples(data: bytes, spec: tuple):
-    s = jax_sketch_bytes(data, "t", _params(jparams, dict(spec)),
+    s = jax_sketch_bytes(data, "t", _params(jparams.SketchParams, dict(spec)),
                          jparams.FilterParams(filter_on=False),
                          backend="jax")
     return _tuples(s)
 
 
 def _port(data, spec, backend):
-    return sketch_bytes(data, "t", _params(sys.modules[__name__], spec),
+    return sketch_bytes(data, "t", _params(SketchParams, spec),
                         FilterParams(filter_on=False), backend=backend,
                         device="cpu")
 
@@ -102,7 +103,7 @@ def test_wide_scaled_k51_matches_oracle_and_jax(backend):
     data = open(QUERY_FA, "rb").read()
     spec = _scaled(51, 8, 0.05)
     exp = _oracle_vec(data, 51, "scaled", 8, 0.05)
-    mh = _params(sys.modules[__name__], spec).max_hash()
+    mh = _params(SketchParams, spec).max_hash()
     below = sum(1 for h, *_ in exp if h <= mh)
     _check(data, spec, backend, exp[: below + max(0, 8 - below)])
 
@@ -140,7 +141,7 @@ def test_wide_scaled_growth_matches_oracle_and_jax():
         rng.integers(0, 4, size=20_000)].tobytes()
     data = b">r\n" + seq + b"\n"
     spec = _scaled(51, 100, 0.5)
-    params = _params(sys.modules[__name__], spec)
+    params = _params(SketchParams, spec)
     engines = []
     s = sketch_stream(data, "t", params, FilterParams(filter_on=False),
                       backend="torch", device="cpu", engine_out=engines)
