@@ -117,7 +117,7 @@ def sketch_step(state, batch_plo, batch_phi, batch_rc, nvalid: int,
     batch_plo/batch_phi are int64 code words, batch_rc the is-rc flags;
     lanes from `nvalid` on are padding. Returns (new_state, below): below
     is a 0-d tensor, the number of distinct hashes <= max_hash in the
-    merged view before truncation (the scaled driver's grow-and-redo
+    merged view before truncation (the scaled engine's grow-and-redo
     signal). No host sync."""
     sh = state[0]
     cap = sh.shape[0]
