@@ -3,8 +3,9 @@
 The counterpart of ``finch_tpu/api.py``. Usage: ``import
 finch_tpu_torch.api as finch`` then use ``finch.Multisketch``,
 ``finch.Sketch``, ``finch.sketch_file`` like the reference module
-(finch-rs/lib/src/python.rs). ``sketch_file`` sketches on the card unless
-the caller passes ``device="cpu"``; without a card it raises.
+(finch-rs/lib/src/python.rs). ``sketch_file`` takes the auto backend: it
+folds k <= 31 on the card unless the caller passes ``device="cpu"``, and
+k > 31 on the host; without a card it raises at any k.
 """
 
 from __future__ import annotations
@@ -363,7 +364,7 @@ def sketch_file(filename: str, n_hashes: int = 1000,
                 filter: bool = True, seed: int = 0,
                 no_strict: bool = False, device="cuda") -> Sketch:
     """python.rs:645-679 (hardwired err_filter=1.0, strand_filter=0.1);
-    the auto backend on `device`."""
+    the auto backend on `device`, which keeps k > 31 on the host."""
     sketch_params = SketchParams.mash(
         kmers_to_sketch=n_hashes,
         final_size=final_size if final_size is not None else n_hashes,

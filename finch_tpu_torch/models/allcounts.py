@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from finch_tpu_torch.core.sketch import KmerCount
+from finch_tpu_torch.errors import FinchMessageError
 from finch_tpu_torch.models.params import SketchParams
 from finch_tpu_torch.native import unpack_kmers
 
@@ -33,13 +34,17 @@ class AllCountsEngine:
     """Dense 4^k table for k <= 15 (the reference's layout, counts.rs:14);
     a sparse native count table for 15 < k <= 31, where the reference's
     dense Vec would need >= 17 GB — same results on the distinct k-mers
-    actually present (to_vec only ever emits nonzero entries)."""
+    actually present (to_vec only ever emits nonzero entries). Its codes
+    are one u64 word, so k > 31 is refused."""
 
     DENSE_MAX_K = 15
 
     def __init__(self, params: SketchParams):
         self.params = params
         self.k = params.kmer_length
+        if self.k > 31:
+            raise FinchMessageError(
+                f"sketch type `none` supports k <= 31, not {self.k}")
         if self.k <= self.DENSE_MAX_K:
             self.counts = np.zeros(4 ** self.k, dtype=np.uint64)
             self._fold = None

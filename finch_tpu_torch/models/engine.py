@@ -277,8 +277,9 @@ class TorchEngine:
     bottomk.sketch_step (the extract kernel runs for k <= 28 on batches of
     >= 128k lanes, in the JAX package's default configuration: the
     weighted extract and tiers D and D2 join it for k <= 25); for
-    32 <= k <= 63 it is bottomk_wide.sketch_step; k >= 64 folds on the
-    host (a NumpyEngine), as the JAX package does.
+    32 <= k <= 63 it is bottomk_wide.sketch_step. It refuses k >= 64,
+    whose payloads are per-k-mer byte windows: make_engine folds those on
+    the host (a NumpyEngine), as the JAX package does.
 
     `stats` counts the tier each step took (`wide` for wide steps) and the
     host syncs it made."""
@@ -290,13 +291,11 @@ class TorchEngine:
         self.device = resolve_device(device)
         self.params = params
         self.stats: dict = {}
-        self.wants_composite = params.k <= 31
-        self._xwide_impl = None
         if params.k > 63:
-            # xwide payloads are per-k-mer byte windows, not the fixed
-            # words the device state carries: fold on the host
-            self._xwide_impl = NumpyEngine(params)
-            return
+            raise FinchMessageError(
+                f"TorchEngine folds k <= 63, not {params.k}; make_engine "
+                "folds larger k on the host")
+        self.wants_composite = params.k <= 31
         self._bottomk = bottomk
         self.wide = params.k > 31
         self.size = params.kmers_to_sketch
@@ -327,9 +326,6 @@ class TorchEngine:
         return u64.from_numpy(out, self.device)
 
     def update(self, packed, rc: np.ndarray) -> None:
-        if self._xwide_impl is not None:
-            self._xwide_impl.update(packed, rc)
-            return
         bs = self.batch_size
         if self.wide:
             plo, phi = packed
@@ -404,13 +400,9 @@ class TorchEngine:
         return tuple(u64.to_numpy(t) for t in state[:4])
 
     def finalize(self):
-        if self._xwide_impl is not None:
-            return self._xwide_impl.finalize()
         return _finalize(self.params, *self._host_state())
 
     def finalize_arrays(self):
-        if self._xwide_impl is not None:
-            return self._xwide_impl.finalize_arrays()
         return _finalize_arrays(self.params, *self._host_state())
 
 
@@ -492,12 +484,17 @@ class HybridEngine:
 def make_engine(params: SketchParams, backend: str = "auto",
                 batch_size: int = 1 << 21, device="cuda"):
     """backend: "auto" (HybridEngine on the card; the host fold when the
-    caller asked for device="cpu"), "torch", "native" or "numpy"."""
+    caller asked for device="cpu"), "torch", "native" or "numpy". The
+    torch backend folds k >= 64 on the host (a NumpyEngine), as the JAX
+    package does, after the same device check."""
     if backend == "numpy":
         return NumpyEngine(params)
     if backend == "native":
         return NativeEngine(params)
     if backend == "torch":
+        resolve_device(device)
+        if params.k > 63:
+            return NumpyEngine(params)
         return TorchEngine(params, batch_size=batch_size, device=device)
     if backend == "auto":
         if resolve_device(device).type == "cuda":

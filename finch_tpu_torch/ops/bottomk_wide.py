@@ -118,7 +118,8 @@ def sketch_step(state, batch_plo, batch_phi, batch_rc, nvalid: int,
     lanes from `nvalid` on are padding. Returns (new_state, below): below
     is a 0-d tensor, the number of distinct hashes <= max_hash in the
     merged view before truncation (the scaled engine's grow-and-redo
-    signal). No host sync."""
+    signal); with has_max_hash False nothing reads it, and it is 0 without
+    being counted. No host sync."""
     sh = state[0]
     cap = sh.shape[0]
     b = batch_plo.shape[0]
@@ -128,12 +129,11 @@ def sketch_step(state, batch_plo, batch_phi, batch_rc, nvalid: int,
 
     with record_function("wide.hash"):
         h = hash_packed_kmers_wide(batch_plo, batch_phi, k=k, seed=seed)
-    mh = max_hash if has_max_hash else 0
     with record_function("wide.select"):
         thresh = sh[-1:]
         if has_max_hash:
             thresh = u64.maximum(
-                thresh, torch.full_like(thresh, u64.to_i64(mh)))
+                thresh, torch.full_like(thresh, u64.to_i64(max_hash)))
         keep = torch.arange(b, device=dev) < nvalid
         keep &= u64.le(h, thresh)
         rc = batch_rc.to(torch.int64)
@@ -156,7 +156,10 @@ def sketch_step(state, batch_plo, batch_phi, batch_rc, nvalid: int,
         order = _sort(merged[0])
         merged = [x[order] for x in merged]
     with record_function("wide.merge_runs"):
-        return _dedup_truncate_wide(*merged, cap, max_hash=mh)
+        if not has_max_hash:
+            new_state, _ = _dedup_truncate_wide(*merged, cap)
+            return new_state, torch.zeros((), dtype=torch.int64, device=dev)
+        return _dedup_truncate_wide(*merged, cap, max_hash=max_hash)
 
 
 def grow_state(state, new_capacity: int):

@@ -138,19 +138,26 @@ def test_no_card_raises(monkeypatch):
 
 
 def test_torch_engine_refuses_wide_k(monkeypatch):
-    """Wide and xwide k are ported: TorchEngine takes them on the CPU when
-    asked (the wide step on the device state, xwide on the host fold) and
-    refuses them only where it refuses any k, without a card."""
+    """Wide k is ported: TorchEngine takes 32 <= k <= 63 on the CPU when
+    asked (the wide step on the device state) and refuses k >= 64, which
+    the torch backend of make_engine folds on the host. Without a card
+    both refuse every k."""
     wide = eng.TorchEngine(ft.SketchParams.mash(kmer_length=32),
                            device="cpu")
     assert not wide.wants_composite and len(wide.state) == 5
-    xwide = eng.TorchEngine(ft.SketchParams.mash(kmer_length=101),
-                            device="cpu")
-    assert isinstance(xwide._xwide_impl, eng.NumpyEngine)
+    xparams = ft.SketchParams.mash(kmer_length=101)
+    with pytest.raises(FinchMessageError, match="folds k <= 63"):
+        eng.TorchEngine(xparams, device="cpu")
+    xwide = eng.make_engine(xparams, backend="torch", device="cpu")
+    assert isinstance(xwide, eng.NumpyEngine)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for k in (32, 63, 101):
+    for k in (32, 63):
         with pytest.raises(FinchMessageError, match="no CUDA device"):
             eng.TorchEngine(ft.SketchParams.mash(kmer_length=k))
+    for k in (32, 63, 101):
+        with pytest.raises(FinchMessageError, match="no CUDA device"):
+            eng.make_engine(ft.SketchParams.mash(kmer_length=k),
+                            backend="torch")
 
 
 @pytest.mark.parametrize("gz", [False, True], ids=["plain", "gzip"])

@@ -5,7 +5,7 @@ the streaming oracle (finch_tpu.models.oracle) and against the JAX
 package's sketch of the same bytes; the k = 51 golden is pinned; a scaled
 run grows the device state; the CLI's `sketch -k 51` round-trips through
 `dist -p`. Without a card, `--backend torch` without `--device cpu` exits
-1 at any k."""
+1 at any k; `--sketch-type none` refuses k > 31."""
 
 import functools
 import json
@@ -210,6 +210,25 @@ def test_torch_backend_without_card_exits_1(k, monkeypatch, capsys):
     assert exc.value.code == 1
     out = capsys.readouterr()
     assert "no CUDA device is available" in out.err
+    assert out.out == ""
+
+
+@pytest.mark.parametrize("k", ["40", "101"])
+@pytest.mark.parametrize("backend", ["auto", "numpy"])
+def test_sketch_type_none_refuses_wide_k(k, backend, monkeypatch, capsys):
+    """AllCounts keeps one-word codes: `--sketch-type none` at k > 31
+    exits 1 with its message and writes no sketch."""
+    from finch_tpu_torch import cli
+
+    monkeypatch.setattr(sys, "argv", [
+        "finch", "sketch", "--sketch-type", "none", "-k", k, "-O",
+        "--err-filter", "0.5", "--backend", backend, "--device", "cpu",
+        QUERY_FA])
+    with pytest.raises(SystemExit) as exc:
+        cli.main()
+    assert exc.value.code == 1
+    out = capsys.readouterr()
+    assert f"sketch type `none` supports k <= 31, not {k}" in out.err
     assert out.out == ""
 
 

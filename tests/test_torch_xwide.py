@@ -1,8 +1,8 @@
 """Arbitrary-k (k >= 64) sketching through the port's entry points: the
 mirror of tests/test_xwide.py with the torch backend on the CPU in place
 of the jax one, numpy and native kept. The xwide path folds on the host
-by design (TorchEngine delegates to a NumpyEngine, as the JAX package's
-engine does); every backend must equal the streaming oracle and the JAX
+by design (the torch backend's make_engine returns a NumpyEngine, as the
+JAX package's engine delegates to one); every backend must equal the streaming oracle and the JAX
 package's sketch of the same bytes."""
 
 import gzip
