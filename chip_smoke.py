@@ -6,9 +6,9 @@
 Run from the root of a checkout on a machine with one CUDA card. It builds
 every kernel of the port from the sources in the checkout (one nvcc per
 source, all at once), holds each kernel against its plain PyTorch version
-at the engines' 2M-lane batch and at 4M (exact equality: the outputs are
-integers), reproduces the frozen goldens through the port's CLI on the
-card, and then drives two paths:
+at the engines' 2M-lane batch, at 4M and at a [mesh] shard's 512k (exact
+equality: the outputs are integers), reproduces the frozen goldens
+through the port's CLI on the card, and then drives these paths:
 
 * [main] sketches a simulated bacterial-isolate sequencing run (a 5 Mbp
   random genome, 150 bp reads at 30x coverage, 0.5% substitutions, half
@@ -50,6 +50,18 @@ card, and then drives two paths:
   batch. Last, k = 101 over the first 20,000 reads: torch (a host fold by
   design) and native must give the same bytes. The wide path reaches no
   TPU kernel, so it has no hand kernel and launches none of the four.
+* [mesh] drives the mesh layer (finch_tpu_torch.parallel) on the one
+  card, over 4 logical shards of cuda:0: the isolate through
+  ShardedSketchEngine in 512k-lane shards (the .sk must equal [main]'s
+  native bytes; the extract and D launch), the CLI's `--backend mesh`
+  (a one-card mesh here), a scaled run over the first 100,000 reads that
+  grows every shard, dup64 steady (16 batches of 2M lanes after a warm
+  fold that takes each shard to [dup]'s steady threshold: the weighted
+  extract and D2 launch; == NativeEngine), the process-local mode over a
+  real NCCL group of world size 1 (2 shards, the first 200,000 reads), the
+  distance mesh forms on [dist]'s clustered DB (sharded_common ==
+  all_pairs_common, all_vs_all_arrays(mesh=) == the unsharded tiles).
+  The shards share one card, so no traffic between cards is measured.
 
 Each kernel's launch counter is zeroed just before each run and read just
 after, and must equal the steps that by the tier switch's rules launch
@@ -540,6 +552,8 @@ def phase_kernels(seed: int, card: dict) -> dict:
         ("uniform_warm", K_MAIN, 0, v, warm, False, None),
         # the engines' default batch (sketch_stream batch_size=2M)
         ("uniform_warm_2M", K_MAIN, 0, v[:b // 2], warm, False, None),
+        # a [mesh] shard: a 2M batch over 4 shards
+        ("uniform_warm_512k", K_MAIN, 0, v[:b // 8], warm, False, None),
         ("cold", K_MAIN, 0, v, 2**64 - 1, False, (1, 1)),
         ("dup64_stride", K_MAIN, 0, dup64, warm, False, (0, 1)),
         ("one_chunk_k28", 28, 42,
@@ -576,6 +590,9 @@ def phase_kernels(seed: int, card: dict) -> dict:
         ("dup64_stride", K_MAIN, 0, dup64, warm, True, (0, 0)),
         ("dup64_stride_2M", K_MAIN, 0, np.tile(v[:b // 128], 64), warm,
          True, (0, 0)),
+        # a [mesh] dup64 shard: 16 copies of 32768 composites
+        ("dup64_stride_512k", K_MAIN, 0, np.tile(v[:1 << 15], 16), warm,
+         True, None),
         # more than 32 distinct survivors in some column
         ("distinct_flood", K_MAIN, 0, v, dup_warm, True, (0, 1)),
         ("distinct_flood_2M", K_MAIN, 0, v[:b // 2], dup_warm, True,
@@ -638,6 +655,7 @@ def phase_kernels(seed: int, card: dict) -> dict:
         # a cold uniform batch: more than 96 distinct per column
         ("cold_uniform", v, 2**64 - 1, (1, 1)),
         ("cold_uniform_2M", v[:b // 2], 2**64 - 1, (1, 1)),
+        ("cold_uniform_512k", v[:b // 8], 2**64 - 1, None),
         ("sparse_warm", v, sparse, None),
         ("sparse_warm_2M", v[:b // 2], sparse, None),
         # 512 chunks, far past the ring's 16: each chunk the same 32
@@ -694,6 +712,7 @@ def phase_kernels(seed: int, card: dict) -> dict:
         # slab (covf 0), the unweighted accumulator overflows (aovf 1)
         ("dup_shuffle", shuffled, dup_warm, (0, 1, 0)),
         ("dup_shuffle_2M", shuffled[:b // 2], dup_warm, (0, 1, 0)),
+        ("dup_shuffle_512k", shuffled[:b // 8], dup_warm, None),
         ("column_flood", _column_flood(rng, b, dup_warm), dup_warm,
          (0, 1, 1)),
         ("column_flood_2M", _column_flood(rng, b // 2, dup_warm), dup_warm,
@@ -964,7 +983,7 @@ def phase_main_path(tmp: str, seed: int) -> dict:
                              f"got {len(sk.hashes)}")
 
     out = {"native_s": native_s, "kmers": kmers, "launches": {},
-           "fastq": fq}
+           "fastq": fq, "ref": ref}
     for backend in ("auto", "torch"):
         reset_launches()
         got, _, secs, stats = run(backend, "cuda")
@@ -1034,6 +1053,16 @@ def abc_configuration():
         bottomk.sketch_step = step
 
 
+def _sorted_distinct(x):
+    """np.unique(x) for a 1-D array, by a sort: numpy 2.3's hash-based
+    np.unique can take minutes on tens of millions of uint64 where a sort
+    takes about a second."""
+    import numpy as np
+
+    x = np.sort(x)
+    return x[np.concatenate([[True], x[1:] != x[:-1]])] if len(x) else x
+
+
 def _warm_kmers(seed: int, n: int, frac: float):
     """n distinct random k-mers hashing below frac of the hash space, as
     composite u32 planes: one batch that takes a cold state to the
@@ -1043,10 +1072,10 @@ def _warm_kmers(seed: int, n: int, frac: float):
     from finch_tpu_torch import native
 
     rng = np.random.default_rng(seed)
-    pk = np.unique(rng.integers(0, 4 ** K_MAIN, size=int(1.5 * n / frac),
-                                dtype=np.uint64))
-    pk = pk[native.murmur3_packed(pk, K_MAIN, 0)
-            <= np.uint64(int(frac * 2**64))][:n]
+    pk = rng.integers(0, 4 ** K_MAIN, size=int(1.5 * n / frac),
+                      dtype=np.uint64)
+    pk = _sorted_distinct(pk[native.murmur3_packed(pk, K_MAIN, 0)
+                             <= np.uint64(int(frac * 2**64))])[:n]
     comp = (pk << np.uint64(1)) | rng.integers(0, 2, size=len(pk),
                                                dtype=np.uint64)
     return ((comp & np.uint64(0xFFFFFFFF)).astype(np.uint32),
@@ -1187,7 +1216,7 @@ def disjoint_db(rng, n: int, k: int):
 
     while True:
         flat = rng.integers(0, 2**64 - 1, size=n * k, dtype=np.uint64)
-        if len(np.unique(flat)) == n * k:
+        if len(_sorted_distinct(flat)) == n * k:
             return np.sort(flat.reshape(n, k), axis=1)
 
 
@@ -1461,6 +1490,7 @@ def phase_dist(tmp: str, seed: int) -> dict:
         if cell == "dist_allpairs_clustered":
             out["full_matrix"] = dist_full_matrix(H, sks, G)
             db_H, db_sks, db_G, db_below = H, sks, G, below
+            out["clustered_db"] = H
             out["clustered_rows"] = len(rows)
         del rows, G, below
 
@@ -1469,6 +1499,7 @@ def phase_dist(tmp: str, seed: int) -> dict:
     cell = "dist_query_db"
     t = time.perf_counter()
     idx = np.arange(DIST_Q) * (DIST_N // DIST_Q)
+    out["query_idx"] = idx
     queries = dist_sketches(db_H[idx], [f"q{i:02d}" for i in range(DIST_Q)])
     with count_calls(parallel, ["all_vs_all_arrays"]) as calls:
         rows, out[cell] = dist_cell(
@@ -1754,6 +1785,295 @@ def phase_wide(fq: str, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the sharded engine and the distance mesh forms
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4            # logical shards, all on cuda:0
+MESH_BPD = 1 << 19         # a 2M-lane CLI batch in 4 shards of 512k lanes
+MESH_SCALED_READS = 100_000
+MESH_PL_READS = 200_000    # the process-local (NCCL) run's reads
+MESH_PL_BPD = 1 << 20      # its 2 shards of 1M lanes
+MESH_DUP_BATCHES = 16
+# the dup64 warm fold: 4 x 262,144 distinct k-mers below 3.15% of the hash
+# space, so that each shard's 200k-entry state reaches about 2.4%, the
+# threshold of [dup]'s steady state
+MESH_WARM = (1 << 20, 0.0315)
+
+
+@contextlib.contextmanager
+def engine_override(make):
+    """While inside, sketch_stream folds with the engine make(params)."""
+    from finch_tpu_torch.core import sketching
+
+    orig = sketching._make_engine
+    sketching._make_engine = lambda params, *a, **kw: make(params)
+    try:
+        yield
+    finally:
+        sketching._make_engine = orig
+
+
+@contextlib.contextmanager
+def record_sharded():
+    """While inside, every ShardedSketchEngine built is appended to the
+    list yielded."""
+    from finch_tpu_torch.parallel import ShardedSketchEngine
+
+    made = []
+    init = ShardedSketchEngine.__init__
+
+    def spy(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    ShardedSketchEngine.__init__ = spy
+    try:
+        yield made
+    finally:
+        ShardedSketchEngine.__init__ = init
+
+
+def fastq_head(src: str, dst: str, reads: int) -> str:
+    """The first `reads` records of a 4-line FASTQ."""
+    import itertools
+
+    with open(src, "rb") as f, open(dst, "wb") as g:
+        g.writelines(itertools.islice(f, 4 * reads))
+    return dst
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
+               smi: str, device: str = "cuda") -> dict:
+    """The mesh layer on one card: ShardedSketchEngine over 4 logical
+    shards on the isolate (== [main]'s native .sk, every kernel launched),
+    the CLI's --backend mesh, a scaled run that grows, dup64 steady (the
+    weighted extract), the process-local mode over a real NCCL group of
+    world size 1, and the distance mesh forms on [dist]'s clustered DB.
+    device="cpu" rehearses it on CPU shards, with gloo for NCCL."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from finch_tpu_torch import cli
+    from finch_tpu_torch.core.sketching import sketch_stream
+    from finch_tpu_torch.models.engine import NativeEngine
+    from finch_tpu_torch.ops import bottomk
+    from finch_tpu_torch.parallel import (Mesh, ShardedSketchEngine,
+                                          distributed, mxu_dist,
+                                          sharded_dist)
+    from finch_tpu_torch.serialization.json_sk import \
+        multisketch_to_json_bytes
+
+    t_phase = time.perf_counter()
+
+    def mlog(msg: str) -> None:
+        log(f"[mesh] {msg} [{time.perf_counter() - t_phase:.1f} s into "
+            f"the phase]")
+
+    on_card = device == "cuda"
+    card0 = torch.device("cuda", 0) if on_card else torch.device("cpu")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    mesh = Mesh([card0] * MESH_SHARDS)
+    mlog(f"{mesh} on {smi}: the {MESH_SHARDS} shards share one card, "
+        f"so no run here moves data between cards (a shard's .to(device) "
+        f"is a no-op) and none measures traffic between them")
+
+    def cli_params(path: str, extra=()):
+        args = cli.build_cli().parse_args(["sketch", *extra, path, "-o",
+                                           "unused"])
+        k = cli.get_kmer_length(args)
+        filters = cli.parse_filter_options(args, k)
+        return cli.parse_sketch_options(args, k, filters.filter_on), filters
+
+    def sketch(path, params, filters, make=None):
+        """The .sk bytes, engine and wall of one sketch_stream run: the
+        engine make(params), or the native host fold."""
+        engines = []
+        with (engine_override(make) if make is not None
+              else contextlib.nullcontext()):
+            t = time.perf_counter()
+            sk = sketch_stream(path, path, params, filters,
+                               backend="mesh" if make else "native",
+                               device=device, engine_out=engines)
+            sync()
+            secs = time.perf_counter() - t
+        # the native fold of a path is the fused C++ pipeline: no engine
+        return (multisketch_to_json_bytes([sk]), sk,
+                engines[0] if engines else None, secs)
+
+    def sharded(bpd, m=mesh, **kw):
+        return lambda p: ShardedSketchEngine(p, m, batch_size_per_device=bpd,
+                                             **kw)
+
+    out = {"launches": {}}
+    params, filters = cli_params(fq)
+
+    # isolate_30x over 4 shards of 512k lanes. A shard's column spans 8
+    # chunks, not a 2M step's 32, so once a shard's state fills its steps
+    # overflow no column and stay in tier A: D2 (a dirty step without a
+    # chunk-column overflow) has no work here, and dup64 below launches it
+    reset_launches()
+    got, sk, eng, secs = sketch(fq, params, filters, sharded(MESH_BPD))
+    launches = read_launches()
+    kmers = sk.num_valid_kmers
+    mlog(f"isolate_30x over {MESH_SHARDS} shards of {MESH_BPD} lanes: "
+        f"{kmers} k-mers in {secs:.3f} s ({kmers / secs:.4g} k-mers/s); "
+        f"{_tier_line(eng.stats)}; launches {launches}; .sk identical to "
+        f"native: {got == ref_sk}")
+    if got != ref_sk:
+        raise AssertionError("[mesh] isolate_30x: .sk differs from native")
+    check_launches("[mesh] isolate_30x", eng.stats, launches)
+    for n in ("extract", "dedup"):
+        if launches[n] < 1:
+            raise AssertionError(f"[mesh] isolate_30x: {n} never launched")
+    out["launches"]["mesh_isolate"] = launches
+
+    # the user's entry point: `finch sketch --backend mesh`, every card
+    o = os.path.join(tmp, "mesh_cli")
+    reset_launches()
+    with record_sharded() as made:
+        t = time.perf_counter()
+        cli.run(["sketch", fq, "--backend", "mesh", "--device", device,
+                 "-o", o])
+        secs = time.perf_counter() - t
+    launches = read_launches()
+    with open(f"{o}.sk", "rb") as f:
+        if f.read() != ref_sk:
+            raise AssertionError("[mesh] CLI --backend mesh: .sk differs "
+                                 "from native")
+    cards = torch.cuda.device_count() if on_card else 1
+    if len(made) != 1 or made[0].mesh.size != cards:
+        raise AssertionError(f"[mesh] CLI: built {made}")
+    check_launches("[mesh] CLI", made[0].stats, launches)
+    mlog(f"CLI sketch --backend mesh: {made[0].mesh}, "
+        f"{made[0].bpd}-lane shards, {secs:.3f} s; "
+        f"{_tier_line(made[0].stats)}; .sk identical to native")
+
+    # scaled over the first reads: the 4 shards grow together
+    head = fastq_head(fq, os.path.join(tmp, "head_scaled.fastq"),
+                      MESH_SCALED_READS)
+    sparams, sfilters = cli_params(head, ["-s", "scaled"])
+    want, _, _, nat_s = sketch(head, sparams, sfilters)
+    got, ssk, eng, secs = sketch(head, sparams, sfilters, sharded(MESH_BPD))
+    first_cap = max(2 * sparams.kmers_to_sketch, 1 << 12)
+    mlog(f"scaled, first {MESH_SCALED_READS} reads "
+        f"({ssk.num_valid_kmers} k-mers): capacity {first_cap} -> "
+        f"{eng.capacity} on every shard, {secs:.3f} s (native {nat_s:.3f} "
+        f"s); {_tier_line(eng.stats)}; .sk identical to native: "
+        f"{got == want}")
+    if got != want or eng.capacity <= first_cap:
+        raise AssertionError("[mesh] scaled: the sketch differs from "
+                             "native, or no shard grew")
+
+    # dup64 steady: a warm fold that takes each shard to [dup]'s steady
+    # threshold, then 16 batches of 2M lanes
+    wlo, whi = _warm_kmers(seed + 2, *MESH_WARM)
+    batches = _dup_batches(seed + 1, False, MESH_DUP_BATCHES, 1 << 21)
+    nat = NativeEngine(params)
+    for lo, hi in [(wlo, whi)] + batches:
+        comp = (hi.astype(np.uint64) << np.uint64(32)) | lo
+        nat.update(comp >> np.uint64(1),
+                   (comp & np.uint64(1)).astype(np.uint8))
+    want = nat.finalize_arrays()
+    eng = ShardedSketchEngine(params, mesh, batch_size_per_device=MESH_BPD)
+    eng.update(wlo, whi)
+    eng.state = [bottomk.flush_state(st, eng._mh, k=params.k,
+                                     seed=params.hash_seed)[0]
+                 for st in eng.state]
+    sync()
+    reset_launches()
+    eng.stats = {}
+    t = time.perf_counter()
+    for lo, hi in batches:
+        eng.update(lo, hi)
+    sync()
+    secs = time.perf_counter() - t
+    launches = read_launches()
+    got = eng.finalize_arrays()
+    equal = all(np.array_equal(x, y) for x, y in zip(got, want))
+    dk = MESH_DUP_BATCHES << 21
+    mlog(f"dup64 steady, {MESH_DUP_BATCHES} batches of 2M lanes in "
+        f"shards of {MESH_BPD}: {dk} k-mers in {secs:.3f} s "
+        f"({dk / secs:.4g} k-mers/s); {_tier_line(eng.stats)}; launches "
+        f"{launches}; sketch identical to NativeEngine: {equal}")
+    if not equal:
+        raise AssertionError("[mesh] dup64 steady: sketch differs from "
+                             "NativeEngine's")
+    check_launches("[mesh] dup64 steady", eng.stats, launches)
+    for n in ("extract_weighted", "dedup_slab"):
+        if launches[n] < 1:
+            raise AssertionError(f"[mesh] dup64 steady: {n} never launched")
+    out["launches"]["mesh_dup64"] = launches
+
+    # process-local mode over a real NCCL group of world size 1
+    head = fastq_head(fq, os.path.join(tmp, "head_pl.fastq"), MESH_PL_READS)
+    want, _, _, _ = sketch(head, params, filters)
+    distributed.initialize(f"127.0.0.1:{free_port()}", num_processes=1,
+                           process_id=0, device=device)
+    try:
+        backend = tdist.get_backend()
+        if backend != ("nccl" if on_card else "gloo"):
+            raise AssertionError(f"[mesh] process group on {backend}")
+        pl_mesh = Mesh([card0] * 2, group=tdist.group.WORLD)
+        got, psk, eng, secs = sketch(head, params, filters,
+                                     sharded(MESH_PL_BPD, pl_mesh,
+                                             process_local=True))
+    finally:
+        tdist.destroy_process_group()
+    if got != want:
+        raise AssertionError("[mesh] process-local: .sk differs from native")
+    mlog(f"process-local over {backend} (world size 1, {pl_mesh}), "
+        f"first {MESH_PL_READS} reads ({psk.num_valid_kmers} k-mers): "
+        f"{secs:.3f} s; {_tier_line(eng.stats)}; the finalize's all_gather "
+        f"ran on {backend}; .sk identical to native")
+
+    # the distance mesh forms on [dist]'s clustered DB
+    H = dist["clustered_db"]
+    L = np.full(H.shape[0], H.shape[1], dtype=np.int32)
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t
+
+    want, flat_s = timed(lambda: mxu_dist.all_pairs_common(H, L,
+                                                           device=device))
+    got, mesh_s = timed(lambda: mxu_dist.sharded_common(H, L, mesh))
+    if not np.array_equal(got, want):
+        raise AssertionError("[mesh] sharded_common != all_pairs_common")
+    del want, got
+    mlog(f"sharded_common over {MESH_SHARDS} shards, {H.shape[0]} x "
+        f"{H.shape[1]} clustered: {mesh_s:.3f} s, all_pairs_common "
+        f"{flat_s:.3f} s; equal integer for integer")
+    qs = [H[i] for i in dist["query_idx"]]
+    rs = list(H)
+    want, flat_s = timed(lambda: sharded_dist.all_vs_all_arrays(
+        qs, rs, device=device))
+    got, mesh_s = timed(lambda: sharded_dist.all_vs_all_arrays(
+        qs, rs, mesh=mesh))
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("[mesh] all_vs_all_arrays(mesh=) != unsharded")
+    mlog(f"all_vs_all_arrays over {MESH_SHARDS} shards, {len(qs)} x "
+        f"{len(rs)}: {mesh_s:.3f} s, unsharded {flat_s:.3f} s; equal")
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def profile_torch_run(fn) -> None:
     """One more torch-backend run under torch.profiler (outside the timed
     runs; the profiler slows the host): device-busy share and the device
@@ -1827,17 +2147,21 @@ def main(argv=None) -> int:
         phase_goldens(tmp)
         main_path = phase_main_path(tmp, opts.seed)
         dup = phase_dup(opts.seed)
-        phase_dist(tmp, opts.seed)
+        dist = phase_dist(tmp, opts.seed)
         phase_wide(main_path["fastq"], tmp)
+        mesh = phase_mesh(main_path["fastq"], main_path["ref"], tmp,
+                          opts.seed, dist, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     # launches: the extract's on the main path (the auto backend, the
-    # `finch sketch` a user calls), this slice's kernels' on the
+    # `finch sketch` a user calls), the other kernels' on the
     # duplicate-burst path ([dup], both streams, default configuration);
-    # every path's own count, each zeroed just before its run, beside it
-    by_path = {**main_path["launches"], **dup["launches"]}
+    # every path's own count, each zeroed just before its run, beside it,
+    # the mesh paths' ([mesh] isolate and dup64 steady) included
+    by_path = {**main_path["launches"], **dup["launches"],
+               **mesh["launches"]}
     dup_total = {n: sum(dup["launches"][s][n] for s in dup["launches"])
                  for n in KERNELS}
     sources = {"extract": "extract.cu", "extract_weighted": "extract.cu",

@@ -9,9 +9,11 @@ orchestration mirror the reference CLI:
   * subcommand orchestration, sketch-in-place, parse_mash_files param
     inheritance — finch-rs/cli/src/main.rs:48-441
 
-`--backend` takes auto|torch|native|numpy and `--device` (default cuda)
-picks the card or the CPU for the device backends; without a card they
-raise unless `--device cpu` is given. `dist` runs its integer statistics
+`--backend` takes auto|torch|mesh|native|numpy and `--device` (default
+cuda) picks the card or the CPU for the device backends; without a card
+they raise unless `--device cpu` is given. `mesh` shards the stream over
+every card (one CPU shard with `--device cpu`); auto takes it when more
+than one card is present. `dist` runs its integer statistics
 on that device (parallel/: the Gram engine for --pairwise, the tiles for
 query-vs-DB) unless `--backend numpy` asks for the serial host loop.
 
@@ -87,9 +89,10 @@ def _add_sketch_options(p):
     p.add_argument("-N", "--no-strict", dest="no_strict", action="store_true",
                    help="Allow sketching files with fewer kmers than n_hashes")
     p.add_argument("--backend", dest="backend", default="auto",
-                   choices=["auto", "torch", "native", "numpy"],
+                   choices=["auto", "torch", "mesh", "native", "numpy"],
                    help="Compute backend (auto: the host fold for small "
-                        "inputs, migrating to the device for large ones)")
+                        "inputs, migrating to the device for large ones; "
+                        "mesh over every card when several are present)")
     p.add_argument("--device", dest="device", default="cuda",
                    help="torch device of the device backends: cuda "
                         "(default) or cpu")

@@ -107,7 +107,7 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
     device steps per tier)."""
     from finch_tpu_torch.utils import get_meter, metrics_enabled, report
 
-    if backend in ("auto", "torch"):
+    if backend in ("auto", "torch", "mesh"):
         resolve_device(device)
     filter_params = filters.copy()
     if _fused_native_ok(source, sketch_params, backend, device):

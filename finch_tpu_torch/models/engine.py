@@ -26,7 +26,9 @@ the host, as the JAX package does; HybridEngine keeps k > 31 on the host.
 
 Device rule: the device engines run on "cuda" unless the caller asks for
 "cpu"; without a card they raise (``resolve_device``) and never fall back
-to the CPU silently, at any k. The multi-device engine is not ported yet.
+to the CPU silently, at any k. The mesh backend (make_engine "mesh", and
+"auto" when more than one card is present) shards the stream over every
+card (parallel/sharded_sketch.py).
 """
 
 from __future__ import annotations
@@ -58,6 +60,15 @@ def resolve_device(device="cuda") -> torch.device:
         raise FinchMessageError(f"unsupported device {device!r}; use "
                                 "'cuda' or 'cpu'")
     return dev
+
+
+def composite_planes(packed: np.ndarray, rc: np.ndarray):
+    """(packed u64, rc) batches -> the parser's composite
+    ((packed << 1) | rc) u32 planes (lo, hi)."""
+    comp = ((np.asarray(packed, dtype=np.uint64) << np.uint64(1))
+            | np.asarray(rc, dtype=np.uint64))
+    return ((comp & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (comp >> np.uint64(32)).astype(np.uint32))
 
 
 def _retention_keep(params: SketchParams, h: np.ndarray) -> int:
@@ -365,11 +376,7 @@ class TorchEngine:
     def _step(self, chunk_pk, chunk_rc) -> None:
         bk = self._bottomk
         if chunk_pk.dtype != np.uint32:
-            # (packed u64, rc) batches -> the parser's composite planes
-            comp = ((np.asarray(chunk_pk, dtype=np.uint64) << np.uint64(1))
-                    | np.asarray(chunk_rc, dtype=np.uint64))
-            chunk_pk = (comp & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-            chunk_rc = (comp >> np.uint64(32)).astype(np.uint32)
+            chunk_pk, chunk_rc = composite_planes(chunk_pk, chunk_rc)
         lo_d = self._pad(chunk_pk)
         hi_d = self._pad(chunk_rc)
         is_scaled = self.params.sketch_type == "scaled"
@@ -481,11 +488,26 @@ class HybridEngine:
         return (self._host or self._dev).finalize_arrays()
 
 
+def _mesh_engine(params: SketchParams, batch_size: int, device="cuda"):
+    """Data-parallel sketching over every card (one CPU shard with
+    device="cpu"; parallel/sharded_sketch.py); bit-identical to the host
+    engines. A shard is at least 16384 lanes wide, so for up to 16 cards
+    a full default batch gives shards of >= 131072 lanes, which run the
+    kernels."""
+    from finch_tpu_torch.parallel import ShardedSketchEngine, make_mesh
+
+    mesh = make_mesh(device=device)
+    return ShardedSketchEngine(
+        params, mesh,
+        batch_size_per_device=max(batch_size // mesh.size, 1 << 14))
+
+
 def make_engine(params: SketchParams, backend: str = "auto",
                 batch_size: int = 1 << 21, device="cuda"):
-    """backend: "auto" (HybridEngine on the card; the host fold when the
-    caller asked for device="cpu"), "torch", "native" or "numpy". The
-    torch backend folds k >= 64 on the host (a NumpyEngine), as the JAX
+    """backend: "auto" (HybridEngine on one card, the mesh engine over
+    several at k <= 31; the host fold when the caller asked for
+    device="cpu"), "torch", "mesh", "native" or "numpy". The torch
+    backend folds k >= 64 on the host (a NumpyEngine), as the JAX
     package does, after the same device check."""
     if backend == "numpy":
         return NumpyEngine(params)
@@ -496,8 +518,17 @@ def make_engine(params: SketchParams, backend: str = "auto",
         if params.k > 63:
             return NumpyEngine(params)
         return TorchEngine(params, batch_size=batch_size, device=device)
+    if backend == "mesh":
+        if params.k > 31:
+            raise FinchMessageError(
+                "the mesh backend supports k <= 31; wide k-mers run on the "
+                "numpy/native/torch backends")
+        return _mesh_engine(params, batch_size, device)
     if backend == "auto":
         if resolve_device(device).type == "cuda":
+            if torch.cuda.device_count() > 1 and params.k <= 31:
+                # several cards: shard the stream over all of them
+                return _mesh_engine(params, batch_size, device)
             return HybridEngine(params, batch_size=batch_size, device=device)
         return NativeEngine(params)
     raise FinchMessageError(f"unknown backend {backend!r}")

@@ -33,8 +33,13 @@ with the JAX package's conservative f32 test and compacted with
 Every device function takes `device` ("cuda" unless the caller passes
 "cpu"; without a card it raises). Each device phase runs inside
 ``torch.profiler.record_function("dist.<phase>")``, so a profile
-attributes the card's time to it. The mesh form (`sharded_common`,
-`_gram_range`) waits for the multi-GPU slice.
+attributes the card's time to it.
+
+The mesh form, `sharded_common`, computes the incidences once and gives
+each shard a contiguous element range cut at run boundaries; the shards'
+int32 partials add on the first device and, across processes, by
+`all_reduce(SUM)`. The JAX package's `_gram_range` is `_page_cuts` over
+that range.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from finch_tpu_torch.models.engine import resolve_device
 from finch_tpu_torch.models.params import U64_MAX
 
 __all__ = ["all_pairs_stats", "all_pairs_common", "all_pairs_survivors",
-           "below_counts_device", "pack_db"]
+           "below_counts_device", "pack_db", "sharded_common"]
 
 # torch.searchsorted values per call in the below counts (bounds the
 # expanded (rows, thresholds) int64 block to 128 MB)
@@ -110,15 +115,21 @@ def _page_size(run_block: int, n: int, cap: int) -> int:
     return min(page, max(int(cap), 2))
 
 
-def _page_cuts(starts: np.ndarray, n_shared: int, page: int):
+def _page_cuts(starts: np.ndarray, n_shared: int, page: int, lo: int = 0,
+               hi: int | None = None):
     """[(a, b, r0, r1)]: the elements [a, b) and runs [r0, r1) of each
-    page. A page ends at the last run boundary within `page` elements of
-    its start, which are the JAX package's cuts."""
+    page over the elements [lo, hi) (default: all), whose ends are run
+    starts or n_shared. A page ends at the last run boundary within
+    `page` elements of its start, which are the JAX package's cuts (its
+    `_gram_range` for a range)."""
     ends = np.append(starts, n_shared)
+    hi = n_shared if hi is None else hi
+    r_hi = int(np.searchsorted(ends, hi))
     cuts = []
-    a = r0 = 0
-    while a < n_shared:
-        r1 = int(np.searchsorted(ends, a + page, side="right")) - 1
+    a, r0 = lo, int(np.searchsorted(ends, lo))
+    while a < hi:
+        r1 = min(int(np.searchsorted(ends, a + page, side="right")) - 1,
+                 r_hi)
         if r1 <= r0:
             raise ValueError(f"Gram page of {page} elements is shorter "
                              "than a run")
@@ -195,6 +206,56 @@ def all_pairs_common(hashes_padded: np.ndarray, lengths: np.ndarray,
     the sketch sizes."""
     dev = resolve_device(device)
     common = _common_device(u64.from_numpy(hashes_padded, dev), run_block)
+    common = common.cpu().numpy().astype(np.int64)
+    np.fill_diagonal(common, np.asarray(lengths, dtype=np.int64))
+    return common
+
+
+def _run_floor(starts: np.ndarray, n_shared: int, pos: int) -> int:
+    """The start of the run that holds shared element `pos` (n_shared
+    past the last one): a range end moved back to a run boundary."""
+    if pos >= n_shared:
+        return n_shared
+    return int(starts[np.searchsorted(starts, pos, side="right") - 1])
+
+
+def sharded_common(hashes_padded: np.ndarray, lengths: np.ndarray, mesh,
+                   axis=None, run_block: int = 2048) -> np.ndarray:
+    """all_pairs_common over a Mesh (parallel/mesh.py): the incidence
+    list is computed once, on the first device (every process of a
+    multi-process mesh holds the same DB and computes it too); global
+    shard d Grams the shared elements [d*cap//n, (d+1)*cap//n) of the
+    cap = N*K flat entries, each end moved back to the start of its run
+    (applied alike on both sides, so the ranges partition the runs); the
+    int32 partials add on the first device and, across processes, by
+    all_reduce(SUM). `axis` names the mesh axis (one axis only)."""
+    n, k = hashes_padded.shape
+    _check_gram_bound(k)
+    dev0 = mesh.devices[0]
+    h = u64.from_numpy(hashes_padded, dev0)
+    sid = torch.arange(n, device=dev0).repeat_interleave(k)
+    rid, sid_c, run_start = _shared_incidences(h.reshape(-1), sid)
+    with record_function("dist.page_cuts"):
+        starts = torch.nonzero(run_start).squeeze(1).cpu().numpy()
+    n_shared = rid.shape[0]
+    cap = n * k
+    page = _page_size(run_block, n, cap)
+    common = torch.zeros((n, n), dtype=torch.int32, device=dev0)
+    for i, dev in enumerate(mesh.devices):
+        d = mesh.rank * len(mesh.devices) + i
+        lo = _run_floor(starts, n_shared, d * cap // mesh.size)
+        hi = _run_floor(starts, n_shared, (d + 1) * cap // mesh.size)
+        if lo == hi:
+            continue
+        cuts = [(a - lo, b - lo, r0, r1) for a, b, r0, r1 in
+                _page_cuts(starts, n_shared, page, lo, hi)]
+        part = _gram_accumulate(rid[lo:hi].to(dev), sid_c[lo:hi].to(dev),
+                                cuts, n)
+        common += part.to(dev0)
+    if mesh.group is not None:
+        import torch.distributed as tdist
+
+        tdist.all_reduce(common, op=tdist.ReduceOp.SUM, group=mesh.group)
     common = common.cpu().numpy().astype(np.int64)
     np.fill_diagonal(common, np.asarray(lengths, dtype=np.int64))
     return common

@@ -16,7 +16,11 @@ query row (common = the hits), and the closed-form pointer end state
 the query rows and into the ref rows. All compares are in u64 order
 (``u64.key``), so hashes >= 2^63 order correctly and the U64_MAX pads sort
 last. A tile holds about 16M lanes (`_pick_tile`), which bounds memory.
-The mesh form (refs sharded over cards) waits for the multi-GPU slice.
+
+The mesh form (`all_vs_all_arrays(mesh=)`, the JAX package's
+`_sharded_pairs_stats`) shards the refs over the mesh: each shard runs
+the tile loop over its slice on its device, the slices join in shard
+order, and across processes by `all_gather`.
 """
 
 from __future__ import annotations
@@ -126,13 +130,46 @@ def pad_hashes(sketch_hashes: List[np.ndarray],
     return out, lens
 
 
+def _sharded_pairs_stats(q, nq, r, nr, max_hash: int, mesh):
+    """(3, Q, R_pad) int64 on the mesh's first device: global shard g
+    takes refs [g*per, (g+1)*per) with per = R_pad / mesh.size, on its
+    device, in ref tiles of min(_pick_tile(Q, Kp), per)."""
+    n_loc = len(mesh.devices)
+    per = r.shape[0] // mesh.size
+    tile = max(1, min(_pick_tile(q.shape[0], q.shape[1]), per))
+    dev0 = mesh.devices[0]
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        g = mesh.rank * n_loc + i
+        rs = slice(g * per, (g + 1) * per)
+        stats = _pairs_stats_tiled(
+            u64.from_numpy(q, dev),
+            torch.from_numpy(nq.astype(np.int64)).to(dev),
+            u64.from_numpy(r[rs], dev),
+            torch.from_numpy(nr[rs].astype(np.int64)).to(dev),
+            max_hash, tile=tile)
+        outs.append(torch.stack(stats).to(dev0))
+    local = torch.cat(outs, dim=2)
+    if mesh.group is None:
+        return local
+    import torch.distributed as tdist
+
+    parts = [torch.empty_like(local) for _ in range(mesh.world_size)]
+    tdist.all_gather(parts, local, group=mesh.group)
+    return torch.cat(parts, dim=2)
+
+
 def all_vs_all_arrays(query_hashes: List[np.ndarray],
                       ref_hashes: List[np.ndarray],
-                      scale: float = 0.0, device="cuda"):
+                      scale: float = 0.0, device="cuda", mesh=None,
+                      axis=None):
     """Integer distance stats for all (query, ref) pairs.
 
     Returns (common, i, j) uint64 arrays of shape (Q, R). Callers apply the
     f64 containment/jaccard/mash formula on host (core/distance.py).
+    With `mesh` (parallel/mesh.py), the refs, padded to a multiple of
+    mesh.size, are sharded over it and `device` is not read; `axis`
+    names the mesh axis (one axis only).
 
     Precondition: u64::MAX is reserved as the pad sentinel. A genuine hash
     equal to u64::MAX (probability ~n/2^64 per sketch) would be mistaken
@@ -148,13 +185,22 @@ def all_vs_all_arrays(query_hashes: List[np.ndarray],
                 "sketch contains hash u64::MAX, which collides with the "
                 "device pad sentinel; use the serial distance engine")
 
-    dev = resolve_device(device)
     kq = max((len(h) for h in query_hashes), default=1)
     kr = max((len(h) for h in ref_hashes), default=1)
     kpad = max(kq, kr, 1)
     q, nq = pad_hashes(query_hashes, kpad)
     r, nr = pad_hashes(ref_hashes, kpad)
     max_hash = scale_recip_max_hash(scale) if scale > 0.0 else 0
+    if mesh is not None:
+        n_r = r.shape[0]
+        pad_r = (-n_r) % mesh.size
+        r = np.concatenate(
+            [r, np.full((pad_r, r.shape[1]), U64_MAX, dtype=np.uint64)])
+        nr = np.concatenate([nr, np.zeros(pad_r, dtype=nr.dtype)])
+        out = _sharded_pairs_stats(q, nq, r, nr, max_hash, mesh)
+        return tuple(s.cpu().numpy()[:, :n_r].astype(np.uint64)
+                     for s in out)
+    dev = resolve_device(device)
     tile = _pick_tile(q.shape[0], q.shape[1])
     stats = _pairs_stats_tiled(
         u64.from_numpy(q, dev), torch.from_numpy(nq.astype(np.int64)).to(dev),

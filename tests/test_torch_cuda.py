@@ -496,3 +496,35 @@ def test_wide_step_card_equals_cpu(cuda, k, scaled):
     assert engines[0].stats["wide"] >= 2
     if scaled:
         assert engines[0].capacity > cap0
+
+
+# --- the mesh: logical shards on one card ---
+
+@pytest.mark.parametrize("scheme", ["mash", "scaled"])
+def test_two_shard_mesh_equals_torch_engine(cuda, scheme):
+    """ShardedSketchEngine over 2 logical shards on the card (1M lanes
+    each: the kernels run on both) finalizes to TorchEngine's sketch on
+    the same 2M-lane batches."""
+    from finch_tpu_torch.models.engine import TorchEngine
+    from finch_tpu_torch.models.params import SketchParams
+    from finch_tpu_torch.parallel import Mesh, ShardedSketchEngine
+
+    params = (SketchParams.scaled(kmers_to_sketch=1000, scale=0.01)
+              if scheme == "scaled" else
+              SketchParams.mash(kmers_to_sketch=200_000, final_size=1000))
+    mesh = Mesh([cuda, cuda])
+    sharded = ShardedSketchEngine(params, mesh, batch_size_per_device=1 << 20)
+    single = TorchEngine(params, device=cuda)
+    rng = np.random.default_rng(21)
+    pool = rng.integers(0, 4 ** 21, size=1 << 20, dtype=np.uint64)
+    for _ in range(3):
+        pk = pool[rng.integers(0, len(pool), size=1 << 21)]  # duplicates
+        rc = rng.integers(0, 2, size=1 << 21, dtype=np.uint8)
+        sharded.update(pk, rc)
+        single.update(pk, rc)
+    torch.cuda.synchronize()
+    for a, b in zip(sharded.finalize_arrays(), single.finalize_arrays()):
+        np.testing.assert_array_equal(a, b)
+    steps = sum(sharded.stats.get(f"tier_{t}", 0)
+                for t in ("A", "D2", "B", "D", "C"))
+    assert steps >= 6   # every shard step took the kernel path
