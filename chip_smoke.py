@@ -6,8 +6,8 @@
 Run from the root of a checkout on a machine with one CUDA card. It builds
 every kernel of the port from the sources in the checkout (one nvcc per
 source, all at once), holds each kernel against its plain PyTorch version
-at the engines' 2M-lane batch, at 4M and at a [mesh] shard's 512k (exact
-equality: the outputs are integers), reproduces the frozen goldens
+at the engines' 2M-lane batch, at 4M and at the [mesh] shards' 128k to 1M
+(exact equality: the outputs are integers), reproduces the frozen goldens
 through the port's CLI on the card, and then drives these paths:
 
 * [main] sketches a simulated bacterial-isolate sequencing run (a 5 Mbp
@@ -58,9 +58,11 @@ through the port's CLI on the card, and then drives these paths:
   grows every shard, dup64 steady (16 batches of 2M lanes after a warm
   fold that takes each shard to [dup]'s steady threshold: the weighted
   extract and D2 launch; == NativeEngine), the process-local mode over a
-  real NCCL group of world size 1 (2 shards, the first 200,000 reads), the
-  distance mesh forms on [dist]'s clustered DB (sharded_common ==
-  all_pairs_common, all_vs_all_arrays(mesh=) == the unsharded tiles).
+  real NCCL group of world size 1 (2 shards of 512k lanes, the first
+  200,000 reads), the distance mesh forms on [dist]'s clustered DB
+  (sharded_common == all_pairs_common, all_vs_all_arrays(mesh=) == the
+  unsharded tiles). Each sketch path's launches are counted on their own,
+  and every shard width a kernel ran at must be one [kernels] held it at.
   The shards share one card, so no traffic between cards is measured.
 
 Each kernel's launch counter is zeroed just before each run and read just
@@ -515,6 +517,16 @@ def _weighted_edge(rng, b: int, chunks):
     return lanes.reshape(-1) << np.uint64(1)
 
 
+# the lane widths at which [kernels] held each kernel against its plain
+# version; [mesh] requires every width its shards launched a kernel at to
+# be among them
+HELD_WIDTHS = {"extract": set(), "extract_weighted": set(), "dedup": set(),
+               "dedup_slab": set()}
+# the [mesh] shards' widths below the 2M and 4M of the main path: bpd
+# (512k) and the powers of two a shorter last batch pads a shard to
+MESH_WIDTHS = (1 << 17, 1 << 18, 1 << 19, 1 << 20)
+
+
 def phase_kernels(seed: int, card: dict) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     import numpy as np
@@ -552,8 +564,6 @@ def phase_kernels(seed: int, card: dict) -> dict:
         ("uniform_warm", K_MAIN, 0, v, warm, False, None),
         # the engines' default batch (sketch_stream batch_size=2M)
         ("uniform_warm_2M", K_MAIN, 0, v[:b // 2], warm, False, None),
-        # a [mesh] shard: a 2M batch over 4 shards
-        ("uniform_warm_512k", K_MAIN, 0, v[:b // 8], warm, False, None),
         ("cold", K_MAIN, 0, v, 2**64 - 1, False, (1, 1)),
         ("dup64_stride", K_MAIN, 0, dup64, warm, False, (0, 1)),
         ("one_chunk_k28", 28, 42,
@@ -561,6 +571,10 @@ def phase_kernels(seed: int, card: dict) -> dict:
           << np.uint64(1)) | rc[:extract.CHUNK], int(0.3 * 2**64), False,
          None),
     ]
+    # the [mesh] shard widths: a 2M batch over 4 shards is 512k; a last,
+    # shorter batch pads each shard to a power of two
+    ex_cases += [(f"uniform_warm_{w >> 10}k", K_MAIN, 0, v[:w], warm, False,
+                  None) for w in MESH_WIDTHS]
     # the 4-base word assembly and the murmur tail (K mod 16 = 4, 5, 0, 1,
     # 9), at 4M and 2M
     for kk in (4, 5, 16, 17, 25):
@@ -590,15 +604,16 @@ def phase_kernels(seed: int, card: dict) -> dict:
         ("dup64_stride", K_MAIN, 0, dup64, warm, True, (0, 0)),
         ("dup64_stride_2M", K_MAIN, 0, np.tile(v[:b // 128], 64), warm,
          True, (0, 0)),
-        # a [mesh] dup64 shard: 16 copies of 32768 composites
-        ("dup64_stride_512k", K_MAIN, 0, np.tile(v[:1 << 15], 16), warm,
-         True, None),
         # more than 32 distinct survivors in some column
         ("distinct_flood", K_MAIN, 0, v, dup_warm, True, (0, 1)),
         ("distinct_flood_2M", K_MAIN, 0, v[:b // 2], dup_warm, True,
          (0, 1)),
         ("uniform_warm_32M", K_MAIN, 0, None, warm, True, None),
     ]
+    # [mesh] dup64 shards: 16 copies of w/16 composites
+    ex_cases += [(f"dup64_stride_{w >> 10}k", K_MAIN, 0,
+                  np.tile(v[:w // 16], 16), warm, True, None)
+                 for w in MESH_WIDTHS]
     # one column with exactly 32 / 33 distinct values over 16 chunks
     for case, (chunks, aovf) in WEIGHTED_EDGES.items():
         for n, tag in ((b, ""), (b // 2, "_2M")):
@@ -619,6 +634,7 @@ def phase_kernels(seed: int, card: dict) -> dict:
                                                 weighted=weighted)
         _require_equal(kernel, name, got, want, ("cand", "slab", "hash_lo",
                                                  "hash_hi", "covf", "aovf"))
+        HELD_WIDTHS[kernel].add(lanes.shape[0])
         flags = (int(got[4]), int(got[5]))
         if flags_want is not None:
             _require_flags(kernel, name, flags, flags_want)
@@ -655,13 +671,14 @@ def phase_kernels(seed: int, card: dict) -> dict:
         # a cold uniform batch: more than 96 distinct per column
         ("cold_uniform", v, 2**64 - 1, (1, 1)),
         ("cold_uniform_2M", v[:b // 2], 2**64 - 1, (1, 1)),
-        ("cold_uniform_512k", v[:b // 8], 2**64 - 1, None),
         ("sparse_warm", v, sparse, None),
         ("sparse_warm_2M", v[:b // 2], sparse, None),
         # 512 chunks, far past the ring's 16: each chunk the same 32
         # values a column, 512 copies each
         ("cold_dup_stride_32M", None, 2**64 - 1, (1, 0)),
     ]
+    d_cases += [(f"cold_uniform_{w >> 10}k", v[:w], 2**64 - 1, None)
+                for w in MESH_WIDTHS]
     # synthetic lanes, one D2 edge-case group a chunk: u64::MAX chunks
     # between real ones, an overflow on the last step only and from the
     # earliest step that can, 85 heads then two 8-copy steps
@@ -687,6 +704,7 @@ def phase_kernels(seed: int, card: dict) -> dict:
         torch.cuda.synchronize()
         want = dedup.dedup_candidates_plain(vlo, vhi, hlo, hhi, tt, k=K_MAIN)
         _require_equal("dedup", name, got, want, ("cand", "dovf"))
+        HELD_WIDTHS["dedup"].add(vlo.shape[0])
         flags = (*flags_pre, int(got[1]))
         if flags_want is not None:
             _require_flags("dedup", name, flags, flags_want)
@@ -712,7 +730,6 @@ def phase_kernels(seed: int, card: dict) -> dict:
         # slab (covf 0), the unweighted accumulator overflows (aovf 1)
         ("dup_shuffle", shuffled, dup_warm, (0, 1, 0)),
         ("dup_shuffle_2M", shuffled[:b // 2], dup_warm, (0, 1, 0)),
-        ("dup_shuffle_512k", shuffled[:b // 8], dup_warm, None),
         ("column_flood", _column_flood(rng, b, dup_warm), dup_warm,
          (0, 1, 1)),
         ("column_flood_2M", _column_flood(rng, b // 2, dup_warm), dup_warm,
@@ -720,6 +737,9 @@ def phase_kernels(seed: int, card: dict) -> dict:
         # 128 steps, far past the shared-memory ring's 16
         ("dup_shuffle_32M", None, dup_warm, None),
     ]
+    # (sketch_step takes D2 only where it can: 128k is 2 chunks, not 4)
+    d2_cases += [(f"dup_shuffle_{w >> 10}k", shuffled[:w], dup_warm, None)
+                 for w in MESH_WIDTHS if dedup.supports_dedup_slab(K_MAIN, w)]
     # synthetic slabs: u64::MAX groups between real ones, an overflow on
     # the last step only, and one from the earliest step that can
     for n, tag in ((b, ""), (b // 2, "_2M")):
@@ -745,6 +765,7 @@ def phase_kernels(seed: int, card: dict) -> dict:
         torch.cuda.synchronize()
         want = dedup.dedup_slab_candidates_plain(slab, k=K_MAIN)
         _require_equal("dedup_slab", name, got, want, ("cand", "d2ovf"))
+        HELD_WIDTHS["dedup_slab"].add(n)
         flags = (*flags_pre, int(got[1]))
         if flags_want is not None:
             _require_flags("dedup_slab", name, flags, flags_want)
@@ -1793,7 +1814,6 @@ MESH_SHARDS = 4            # logical shards, all on cuda:0
 MESH_BPD = 1 << 19         # a 2M-lane CLI batch in 4 shards of 512k lanes
 MESH_SCALED_READS = 100_000
 MESH_PL_READS = 200_000    # the process-local (NCCL) run's reads
-MESH_PL_BPD = 1 << 20      # its 2 shards of 1M lanes
 MESH_DUP_BATCHES = 16
 # the dup64 warm fold: 4 x 262,144 distinct k-mers below 3.15% of the hash
 # space, so that each shard's 200k-entry state reaches about 2.4%, the
@@ -1812,6 +1832,33 @@ def engine_override(make):
         yield
     finally:
         sketching._make_engine = orig
+
+
+@contextlib.contextmanager
+def record_widths():
+    """While inside, the lane width of each bottomk.sketch_step call is
+    added to the yielded {kernel: widths} for every kernel that the call
+    launched (the launch counts, read before and after, stay as they
+    are)."""
+    from finch_tpu_torch.ops import bottomk
+
+    seen = {n: set() for n in KERNELS}
+    step = bottomk.sketch_step
+
+    def spy(state, comp_lo, *a, **kw):
+        before = read_launches()
+        out = step(state, comp_lo, *a, **kw)
+        after = read_launches()
+        for n in KERNELS:
+            if after[n] > before[n]:
+                seen[n].add(comp_lo.shape[0])
+        return out
+
+    bottomk.sketch_step = spy
+    try:
+        yield seen
+    finally:
+        bottomk.sketch_step = step
 
 
 @contextlib.contextmanager
@@ -1858,7 +1905,24 @@ def phase_mesh(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
     the CLI's --backend mesh, a scaled run that grows, dup64 steady (the
     weighted extract), the process-local mode over a real NCCL group of
     world size 1, and the distance mesh forms on [dist]'s clustered DB.
-    device="cpu" rehearses it on CPU shards, with gloo for NCCL."""
+    Each sketch path's launches are zeroed before it, read after it and
+    held to its tier tallies; every shard width a kernel launched at must
+    be one that [kernels] held it at. device="cpu" rehearses it on CPU
+    shards, with gloo for NCCL."""
+    with record_widths() as widths:
+        out = _mesh_runs(fq, ref_sk, tmp, seed, dist, smi, device)
+    for n, ws in widths.items():
+        if ws - HELD_WIDTHS[n]:
+            raise AssertionError(
+                f"[mesh] {n} launched at widths {sorted(ws - HELD_WIDTHS[n])}"
+                f" that [kernels] never held against its plain version")
+    log(f"[mesh] shard widths launched, each held in [kernels]: "
+        f"{ {n: sorted(ws) for n, ws in widths.items()} }")
+    return out
+
+
+def _mesh_runs(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
+               smi: str, device: str) -> dict:
     import numpy as np
     import torch
     import torch.distributed as tdist
@@ -1958,25 +2022,31 @@ def phase_mesh(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
     if len(made) != 1 or made[0].mesh.size != cards:
         raise AssertionError(f"[mesh] CLI: built {made}")
     check_launches("[mesh] CLI", made[0].stats, launches)
+    out["launches"]["mesh_cli"] = launches
     mlog(f"CLI sketch --backend mesh: {made[0].mesh}, "
         f"{made[0].bpd}-lane shards, {secs:.3f} s; "
-        f"{_tier_line(made[0].stats)}; .sk identical to native")
+        f"{_tier_line(made[0].stats)}; launches {launches}; .sk identical "
+        f"to native")
 
     # scaled over the first reads: the 4 shards grow together
     head = fastq_head(fq, os.path.join(tmp, "head_scaled.fastq"),
                       MESH_SCALED_READS)
     sparams, sfilters = cli_params(head, ["-s", "scaled"])
     want, _, _, nat_s = sketch(head, sparams, sfilters)
+    reset_launches()
     got, ssk, eng, secs = sketch(head, sparams, sfilters, sharded(MESH_BPD))
+    launches = read_launches()
     first_cap = max(2 * sparams.kmers_to_sketch, 1 << 12)
     mlog(f"scaled, first {MESH_SCALED_READS} reads "
         f"({ssk.num_valid_kmers} k-mers): capacity {first_cap} -> "
         f"{eng.capacity} on every shard, {secs:.3f} s (native {nat_s:.3f} "
-        f"s); {_tier_line(eng.stats)}; .sk identical to native: "
-        f"{got == want}")
+        f"s); {_tier_line(eng.stats)}; launches {launches}; .sk identical "
+        f"to native: {got == want}")
     if got != want or eng.capacity <= first_cap:
         raise AssertionError("[mesh] scaled: the sketch differs from "
                              "native, or no shard grew")
+    check_launches("[mesh] scaled", eng.stats, launches)
+    out["launches"]["mesh_scaled"] = launches
 
     # dup64 steady: a warm fold that takes each shard to [dup]'s steady
     # threshold, then 16 batches of 2M lanes
@@ -2028,17 +2098,22 @@ def phase_mesh(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
         if backend != ("nccl" if on_card else "gloo"):
             raise AssertionError(f"[mesh] process group on {backend}")
         pl_mesh = Mesh([card0] * 2, group=tdist.group.WORLD)
+        reset_launches()
         got, psk, eng, secs = sketch(head, params, filters,
-                                     sharded(MESH_PL_BPD, pl_mesh,
+                                     sharded(MESH_BPD, pl_mesh,
                                              process_local=True))
+        launches = read_launches()
     finally:
         tdist.destroy_process_group()
     if got != want:
         raise AssertionError("[mesh] process-local: .sk differs from native")
+    check_launches("[mesh] process-local", eng.stats, launches)
+    out["launches"]["mesh_process_local"] = launches
     mlog(f"process-local over {backend} (world size 1, {pl_mesh}), "
-        f"first {MESH_PL_READS} reads ({psk.num_valid_kmers} k-mers): "
-        f"{secs:.3f} s; {_tier_line(eng.stats)}; the finalize's all_gather "
-        f"ran on {backend}; .sk identical to native")
+        f"first {MESH_PL_READS} reads ({psk.num_valid_kmers} k-mers) in "
+        f"shards of {MESH_BPD}: {secs:.3f} s; {_tier_line(eng.stats)}; "
+        f"launches {launches}; the finalize's all_gather ran on {backend}; "
+        f".sk identical to native")
 
     # the distance mesh forms on [dist]'s clustered DB
     H = dist["clustered_db"]
@@ -2159,7 +2234,8 @@ def main(argv=None) -> int:
     # `finch sketch` a user calls), the other kernels' on the
     # duplicate-burst path ([dup], both streams, default configuration);
     # every path's own count, each zeroed just before its run, beside it,
-    # the mesh paths' ([mesh] isolate and dup64 steady) included
+    # the mesh paths' ([mesh] isolate, CLI, scaled, dup64 steady and
+    # process-local) included
     by_path = {**main_path["launches"], **dup["launches"],
                **mesh["launches"]}
     dup_total = {n: sum(dup["launches"][s][n] for s in dup["launches"])

@@ -104,25 +104,6 @@ def state_to_numpy(state):
             *(t.cpu().numpy() for t in state[5:]))
 
 
-def sharded_state_from_numpy(arrays, mesh):
-    """Per-shard states, one on each of `mesh.devices`, from the JAX
-    package's sharded state rows: its 7-tuple of (n, ...) arrays
-    (``np.asarray(engine.state[i])``), row i for shard i."""
-    n = len(mesh.devices)
-    if any(np.asarray(a).shape[0] != n for a in arrays):
-        raise FinchMessageError(f"sharded state rows must number {n}, the "
-                                "mesh's local shards")
-    return [state_from_numpy([np.asarray(a)[i] for a in arrays], dev)
-            for i, dev in enumerate(mesh.devices)]
-
-
-def sharded_state_to_numpy(engine):
-    """Inverse of sharded_state_from_numpy: a ShardedSketchEngine's
-    per-shard states as the JAX package's 7-tuple of (n, ...) rows."""
-    rows = [state_to_numpy(s) for s in engine.state]
-    return tuple(np.stack(col) for col in zip(*rows))
-
-
 def _dedup_truncate(h, c, e, pk, out_len: int):
     """h sorted ascending in u64 order (duplicate runs adjacent; pads have
     h=u64::MAX, c=0). Returns the distinct hashes ascending with summed

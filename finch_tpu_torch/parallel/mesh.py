@@ -28,7 +28,9 @@ class Mesh:
     would, which is how a single card or the CPU checks the sharding
     logic, but they run one after another and move no data between
     cards. `group`, when given, is the `torch.distributed` process group
-    of a multi-process mesh; its rank and size are read from it."""
+    of a multi-process mesh; its rank and size are read from it.
+    `axis_name` labels the one axis, as JAX's mesh names its axes; no
+    program reads it."""
 
     def __init__(self, devices: Sequence, axis_name: str = "data",
                  group=None):

@@ -185,19 +185,52 @@ def _check_gram_bound(k: int) -> None:
             "(parallel.sharded_dist) for sketches this large")
 
 
-def _common_device(h: torch.Tensor, run_block: int) -> torch.Tensor:
+def _run_floor(starts: np.ndarray, n_shared: int, pos: int) -> int:
+    """The start of the run that holds shared element `pos` (n_shared
+    past the last one): a range end moved back to a run boundary."""
+    if pos >= n_shared:
+        return n_shared
+    return int(starts[np.searchsorted(starts, pos, side="right") - 1])
+
+
+def _common_device(h: torch.Tensor, run_block: int,
+                   mesh=None) -> torch.Tensor:
     """The (N, N) int32 Gram of the (N, K) hashes `h` on their device,
     diagonal not fixed. Syncs once (for the run starts); the products
-    stay queued when it returns."""
+    stay queued when it returns.
+
+    With `mesh` (parallel/mesh.py), global shard d Grams the shared
+    elements [d*cap//n, (d+1)*cap//n) of the cap = N*K flat entries on
+    its device, each end moved back to the start of its run (applied
+    alike on both sides, so the ranges partition the runs), and this
+    process's partials add on h's device. Without it, one range holds
+    every element."""
     n, k = h.shape
     _check_gram_bound(k)
     sid = torch.arange(n, device=h.device).repeat_interleave(k)
     rid, sid_c, run_start = _shared_incidences(h.reshape(-1), sid)
     with record_function("dist.page_cuts"):
         starts = torch.nonzero(run_start).squeeze(1).cpu().numpy()
-        cuts = _page_cuts(starts, rid.shape[0],
-                          _page_size(run_block, n, n * k))
-    return _gram_accumulate(rid, sid_c, cuts, n)
+    n_shared = rid.shape[0]
+    page = _page_size(run_block, n, n * k)
+    if mesh is None:
+        ranges = [(h.device, 0, n_shared)]
+    else:
+        ranges = []
+        for i, dev in enumerate(mesh.devices):
+            d = mesh.rank * len(mesh.devices) + i
+            ranges.append((dev, *(_run_floor(starts, n_shared,
+                                             e * n * k // mesh.size)
+                                  for e in (d, d + 1))))
+    common = None
+    for dev, lo, hi in ranges:
+        with record_function("dist.page_cuts"):
+            cuts = [(a - lo, b - lo, r0, r1) for a, b, r0, r1 in
+                    _page_cuts(starts, n_shared, page, lo, hi)]
+        part = _gram_accumulate(rid[lo:hi].to(dev), sid_c[lo:hi].to(dev),
+                                cuts, n).to(h.device)
+        common = part if common is None else common + part
+    return common
 
 
 def all_pairs_common(hashes_padded: np.ndarray, lengths: np.ndarray,
@@ -211,47 +244,17 @@ def all_pairs_common(hashes_padded: np.ndarray, lengths: np.ndarray,
     return common
 
 
-def _run_floor(starts: np.ndarray, n_shared: int, pos: int) -> int:
-    """The start of the run that holds shared element `pos` (n_shared
-    past the last one): a range end moved back to a run boundary."""
-    if pos >= n_shared:
-        return n_shared
-    return int(starts[np.searchsorted(starts, pos, side="right") - 1])
-
-
 def sharded_common(hashes_padded: np.ndarray, lengths: np.ndarray, mesh,
                    axis=None, run_block: int = 2048) -> np.ndarray:
     """all_pairs_common over a Mesh (parallel/mesh.py): the incidence
     list is computed once, on the first device (every process of a
-    multi-process mesh holds the same DB and computes it too); global
-    shard d Grams the shared elements [d*cap//n, (d+1)*cap//n) of the
-    cap = N*K flat entries, each end moved back to the start of its run
-    (applied alike on both sides, so the ranges partition the runs); the
-    int32 partials add on the first device and, across processes, by
-    all_reduce(SUM). `axis` names the mesh axis (one axis only)."""
-    n, k = hashes_padded.shape
-    _check_gram_bound(k)
-    dev0 = mesh.devices[0]
-    h = u64.from_numpy(hashes_padded, dev0)
-    sid = torch.arange(n, device=dev0).repeat_interleave(k)
-    rid, sid_c, run_start = _shared_incidences(h.reshape(-1), sid)
-    with record_function("dist.page_cuts"):
-        starts = torch.nonzero(run_start).squeeze(1).cpu().numpy()
-    n_shared = rid.shape[0]
-    cap = n * k
-    page = _page_size(run_block, n, cap)
-    common = torch.zeros((n, n), dtype=torch.int32, device=dev0)
-    for i, dev in enumerate(mesh.devices):
-        d = mesh.rank * len(mesh.devices) + i
-        lo = _run_floor(starts, n_shared, d * cap // mesh.size)
-        hi = _run_floor(starts, n_shared, (d + 1) * cap // mesh.size)
-        if lo == hi:
-            continue
-        cuts = [(a - lo, b - lo, r0, r1) for a, b, r0, r1 in
-                _page_cuts(starts, n_shared, page, lo, hi)]
-        part = _gram_accumulate(rid[lo:hi].to(dev), sid_c[lo:hi].to(dev),
-                                cuts, n)
-        common += part.to(dev0)
+    multi-process mesh holds the same DB and computes it too), each
+    shard Grams its run-aligned element range (_common_device), and the
+    int32 partials add across processes by all_reduce(SUM). `axis` is
+    accepted for the JAX package's signature and not read: the mesh has
+    one axis."""
+    common = _common_device(u64.from_numpy(hashes_padded, mesh.devices[0]),
+                            run_block, mesh).contiguous()
     if mesh.group is not None:
         import torch.distributed as tdist
 

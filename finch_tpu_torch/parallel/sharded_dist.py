@@ -168,8 +168,9 @@ def all_vs_all_arrays(query_hashes: List[np.ndarray],
     Returns (common, i, j) uint64 arrays of shape (Q, R). Callers apply the
     f64 containment/jaccard/mash formula on host (core/distance.py).
     With `mesh` (parallel/mesh.py), the refs, padded to a multiple of
-    mesh.size, are sharded over it and `device` is not read; `axis`
-    names the mesh axis (one axis only).
+    mesh.size, are sharded over it and `device` is not read. `axis` is
+    accepted for the JAX package's signature and not read: the mesh has
+    one axis.
 
     Precondition: u64::MAX is reserved as the pad sentinel. A genuine hash
     equal to u64::MAX (probability ~n/2^64 per sketch) would be mistaken

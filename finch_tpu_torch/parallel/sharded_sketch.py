@@ -55,7 +55,9 @@ class ShardedSketchEngine:
     finalize meets in an all_gather. A process that steps more or fewer
     times than the others hangs the group: nothing detects it.
     Exactness is order-independent, so any split of the stream is
-    exact. `stats` sums sketch_step's tallies over every shard."""
+    exact. `stats` sums sketch_step's tallies over every shard. `axis`
+    is accepted for the JAX package's signature and not read: the mesh
+    has one axis."""
 
     def __init__(self, params: SketchParams, mesh: Mesh, axis: str = "data",
                  batch_size_per_device: int = 1 << 20,
@@ -69,7 +71,6 @@ class ShardedSketchEngine:
                                     "process group (distributed.global_mesh)")
         self.params = params
         self.mesh = mesh
-        self.axis = axis
         self.n = mesh.size
         self.n_local = len(mesh.devices)
         self.process_local = process_local
@@ -189,3 +190,22 @@ class ShardedSketchEngine:
 
     def finalize_arrays(self):
         return _finalize_arrays(self.params, *self._merged_arrays())
+
+
+def sharded_state_from_numpy(arrays, mesh: Mesh):
+    """Per-shard states, one on each of `mesh.devices`, from the JAX
+    package's sharded state rows: its 7-tuple of (n, ...) arrays
+    (``np.asarray(engine.state[i])``), row i for shard i."""
+    n = len(mesh.devices)
+    if any(np.asarray(a).shape[0] != n for a in arrays):
+        raise FinchMessageError(f"sharded state rows must number {n}, the "
+                                "mesh's local shards")
+    return [bottomk.state_from_numpy([np.asarray(a)[i] for a in arrays], dev)
+            for i, dev in enumerate(mesh.devices)]
+
+
+def sharded_state_to_numpy(engine: ShardedSketchEngine):
+    """Inverse of sharded_state_from_numpy: a ShardedSketchEngine's
+    per-shard states as the JAX package's 7-tuple of (n, ...) rows."""
+    rows = [bottomk.state_to_numpy(s) for s in engine.state]
+    return tuple(np.stack(col) for col in zip(*rows))

@@ -7,7 +7,8 @@ ranks' results against NumpyEngine and against the single-process port.
 
 Covered: the process-local mash sketch and the scaled sketch (grown from
 capacity 16; both ranks step equally often, so their all_reduces meet),
-sharded_common (all_reduce of the int32 Gram partials) and
+sharded_common (all_reduce of the int32 Gram partials; over the 4-shard
+mesh and over the global mesh of one shard a process) and
 all_vs_all_arrays(mesh=) (all_gather of the ref shards)."""
 
 import os
@@ -89,6 +90,9 @@ for name, params in (("mash", SketchParams.mash(**MASH)),
                 f"{name}_p": p, f"{name}_cap": np.array(eng.capacity)})
 H, L = mxu_dist.pack_db(db())
 res["common"] = mxu_dist.sharded_common(H, L, mesh, run_block=16)
+# one shard per process: each rank's partial is a single Gram
+res["common_global"] = mxu_dist.sharded_common(
+    H, L, distributed.global_mesh(), run_block=16)
 sk = db()
 for scale in (0.0, 0.5):
     for n, a in zip("cij", sharded_dist.all_vs_all_arrays(
@@ -156,6 +160,14 @@ def test_sharded_common_across_processes(ranks):
     assert want.sum() > np.trace(want)   # the DB shares hashes
     for r in res:
         assert np.array_equal(r["common"], want)
+
+
+def test_sharded_common_one_shard_per_process(ranks):
+    inputs, res = ranks
+    H, L = mxu_dist.pack_db(inputs.db())
+    want = mxu_dist.all_pairs_common(H, L, device="cpu")
+    for r in res:
+        assert np.array_equal(r["common_global"], want)
 
 
 @pytest.mark.parametrize("scale", [0.0, 0.5])

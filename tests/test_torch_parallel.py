@@ -27,6 +27,8 @@ from finch_tpu_torch.models.params import SketchParams
 from finch_tpu_torch.ops import bottomk as tbk
 from finch_tpu_torch.parallel import (Mesh, ShardedSketchEngine, make_mesh,
                                       mxu_dist as tmx, sharded_dist as tsd)
+from finch_tpu_torch.parallel.sharded_sketch import (sharded_state_from_numpy,
+                                                     sharded_state_to_numpy)
 
 torch.set_num_threads(2)
 
@@ -106,7 +108,7 @@ def test_per_shard_flushed_states_equal_jax(run):
     saved = eng.state
     eng.state = [tbk.flush_state(s, mh, k=11, seed=0)[0] for s in saved]
     try:
-        got = tbk.sharded_state_to_numpy(eng)
+        got = sharded_state_to_numpy(eng)
     finally:
         eng.state = saved
     for g, w in zip(got, run["jrows"]):
@@ -119,11 +121,11 @@ def test_jax_mid_stream_state_carries_into_the_port(run):
     then fold one more batch and finalize alike."""
     jp, tp = _params(run["scheme"])
     mesh = make_mesh(8, device="cpu")
-    states = tbk.sharded_state_from_numpy(run["raw"], mesh)
+    states = sharded_state_from_numpy(run["raw"], mesh)
     port = ShardedSketchEngine(tp, mesh, batch_size_per_device=512)
     port.state = states
     port.capacity = states[0][0].shape[0]
-    for g, w in zip(tbk.sharded_state_to_numpy(port), run["raw"]):
+    for g, w in zip(sharded_state_to_numpy(port), run["raw"]):
         assert np.array_equal(g, w)
     jeng = JSharded(jp, jmake_mesh(8), batch_size_per_device=512)
     jeng.state = tuple(jeng._put(r) for r in run["raw"])
@@ -134,7 +136,7 @@ def test_jax_mid_stream_state_carries_into_the_port(run):
         jeng.update(pk, rc)
     assert _rows(port.finalize()) == _rows(jeng.finalize())
     with pytest.raises(FinchMessageError, match="rows must number 4"):
-        tbk.sharded_state_from_numpy(run["raw"], make_mesh(4, device="cpu"))
+        sharded_state_from_numpy(run["raw"], make_mesh(4, device="cpu"))
 
 
 def test_scaled_growth_equals_jax_and_numpy():
