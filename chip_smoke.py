@@ -63,7 +63,11 @@ through the port's CLI on the card, and then drives these paths:
   (sharded_common == all_pairs_common, all_vs_all_arrays(mesh=) == the
   unsharded tiles). Each sketch path's launches are counted on their own,
   and every shard width a kernel ran at must be one [kernels] held it at.
-  The shards share one card, so no traffic between cards is measured.
+  The mesh steps its shards in lockstep, one host wait a round for every
+  shard's read: the isolate must make at most half as many host syncs as
+  its shards made reads, and its wall is printed over the torch
+  backend's on the same file just after. The shards share one card, so
+  no traffic between cards and no concurrency of cards is measured.
 
 Each kernel's launch counter is zeroed just before each run and read just
 after, and must equal the steps that by the tier switch's rules launch
@@ -933,7 +937,9 @@ def _tier_line(stats: dict) -> str:
     return (f"tiers A/D2/B/D/C {tiers}, weighted extracts "
             f"{stats.get('extract_weighted', 0)}, D2/D overflows "
             f"{stats.get('D2_overflow', 0)}/{stats.get('D_overflow', 0)}, "
-            f"host syncs {stats.get('syncs', 0)}")
+            f"host syncs {stats.get('syncs', 0)}"
+            + (f" for {stats['shard_reads']} shard reads"
+               if "shard_reads" in stats else ""))
 
 
 # the A/B's runs: five pairs of the default configuration and the
@@ -1836,29 +1842,63 @@ def engine_override(make):
 
 @contextlib.contextmanager
 def record_widths():
-    """While inside, the lane width of each bottomk.sketch_step call is
-    added to the yielded {kernel: widths} for every kernel that the call
-    launched (the launch counts, read before and after, stay as they
-    are)."""
+    """While inside, the lane width of each step (bottomk.sketch_step_gen,
+    which sketch_step and the mesh's lockstep rounds both run) is added to
+    the yielded {kernel: widths} for every kernel that the step launched.
+    The mesh resumes one shard's step at a time, so the launch counts read
+    around each resume are that shard's (and stay as they are)."""
     from finch_tpu_torch.ops import bottomk
 
     seen = {n: set() for n in KERNELS}
-    step = bottomk.sketch_step
+    step_gen = bottomk.sketch_step_gen
 
     def spy(state, comp_lo, *a, **kw):
-        before = read_launches()
-        out = step(state, comp_lo, *a, **kw)
-        after = read_launches()
-        for n in KERNELS:
-            if after[n] > before[n]:
-                seen[n].add(comp_lo.shape[0])
-        return out
+        gen = step_gen(state, comp_lo, *a, **kw)
+        answer = None
+        while True:
+            before = read_launches()
+            try:
+                ask = gen.send(answer)
+            except StopIteration as stop:
+                ask, out = None, stop.value
+            after = read_launches()
+            for n in KERNELS:
+                if after[n] > before[n]:
+                    seen[n].add(comp_lo.shape[0])
+            if ask is None:
+                return out
+            answer = yield ask
 
-    bottomk.sketch_step = spy
+    bottomk.sketch_step_gen = spy
     try:
         yield seen
     finally:
-        bottomk.sketch_step = step
+        bottomk.sketch_step_gen = step_gen
+
+
+@contextlib.contextmanager
+def count_device_syncs(on_card: bool):
+    """While inside, each call in which PyTorch makes the host wait for a
+    card (a blocking copy, .item(), .tolist(), a stream or device
+    synchronize: torch.cuda.set_sync_debug_mode) adds one to the yielded
+    list. Off the card nothing is counted."""
+    import warnings
+
+    import torch
+
+    waits = []
+    if not on_card:
+        yield waits
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield waits
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits.extend(w for w in caught
+                 if "synchronizing CUDA operation" in str(w.message))
 
 
 @contextlib.contextmanager
@@ -1901,7 +1941,9 @@ def free_port() -> int:
 def phase_mesh(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
                smi: str, device: str = "cuda") -> dict:
     """The mesh layer on one card: ShardedSketchEngine over 4 logical
-    shards on the isolate (== [main]'s native .sk, every kernel launched),
+    shards on the isolate (== [main]'s native .sk, every kernel launched,
+    at most half as many host syncs as shard reads, its wall over the
+    torch backend's),
     the CLI's --backend mesh, a scaled run that grows, dup64 steady (the
     weighted extract), the process-local mode over a real NCCL group of
     world size 1, and the distance mesh forms on [dist]'s clustered DB.
@@ -2004,6 +2046,22 @@ def _mesh_runs(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
         if launches[n] < 1:
             raise AssertionError(f"[mesh] isolate_30x: {n} never launched")
     out["launches"]["mesh_isolate"] = launches
+    # the lockstep step: one host wait a round answers every shard's read,
+    # where a serial loop of shards waits once a read (syncs == shard_reads)
+    syncs, reads = eng.stats["syncs"], eng.stats["shard_reads"]
+    mlog(f"isolate_30x lockstep: {syncs} host syncs for {reads} shard "
+        f"reads ({syncs / reads:.4f})")
+    if syncs > 0.5 * reads:
+        raise AssertionError(f"[mesh] isolate_30x: {syncs} host syncs for "
+                             f"{reads} shard reads, more than half")
+    # --backend torch on the same file just after: the wall the mesh's is
+    # held against, in the same run
+    t = time.perf_counter()
+    sketch_stream(fq, fq, params, filters, backend="torch", device=device)
+    sync()
+    torch_s = time.perf_counter() - t
+    mlog(f"isolate_30x wall: mesh {secs:.3f} s over --backend torch "
+        f"{torch_s:.3f} s = {secs / torch_s:.4f}x on {smi}")
 
     # the user's entry point: `finch sketch --backend mesh`, every card
     o = os.path.join(tmp, "mesh_cli")
@@ -2067,11 +2125,20 @@ def _mesh_runs(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
     reset_launches()
     eng.stats = {}
     t = time.perf_counter()
-    for lo, hi in batches:
-        eng.update(lo, hi)
+    with count_device_syncs(on_card) as waits:
+        for lo, hi in batches:
+            eng.update(lo, hi)
     sync()
     secs = time.perf_counter() - t
     launches = read_launches()
+    # the lockstep's claim on the card: the host waits for it once a round
+    # and at nothing else (no blocking upload, no hidden .item())
+    mlog(f"dup64 steady: PyTorch made the host wait {len(waits)} times "
+        f"in the updates; the engine counted {eng.stats['syncs']} rounds "
+        f"for {eng.stats['shard_reads']} shard reads")
+    if on_card and len(waits) != eng.stats["syncs"]:
+        raise AssertionError(f"[mesh] dup64 steady: {len(waits)} host waits "
+                             f"!= {eng.stats['syncs']} lockstep rounds")
     got = eng.finalize_arrays()
     equal = all(np.array_equal(x, y) for x, y in zip(got, want))
     dk = MESH_DUP_BATCHES << 21

@@ -528,10 +528,9 @@ def make_engine(params: SketchParams, backend: str = "auto",
         if resolve_device(device).type == "cuda":
             if torch.cuda.device_count() > 1 and params.k <= 31:
                 # several cards: shard the stream over all of them, as the
-                # JAX package does. Its shards step one after another
-                # (each step reads flags on the host) and it has no host
-                # fold for small inputs; no run on several cards has yet
-                # shown it faster than HybridEngine on one
+                # JAX package does. The shards step in lockstep (one host
+                # wait a round answers every shard's flags); the mesh has
+                # no host fold for small inputs
                 return _mesh_engine(params, batch_size, device)
             return HybridEngine(params, batch_size=batch_size, device=device)
         return NativeEngine(params)

@@ -13,7 +13,11 @@ What differs from the JAX package:
   loops. Each stage sorts once, then reads how many leading pages hold a
   survivor in one host transfer; the appends never change the sorted
   block, so this equals the JAX loop conditions. Every host read is a
-  device sync; ``sketch_step`` counts them in ``stats["syncs"]``.
+  device sync. ``sketch_step_gen`` is the step as a coroutine: it yields
+  each device tensor it needs on the host and is sent the value back, so
+  its caller decides when to wait. ``sketch_step`` reads each one at once
+  and counts the reads in ``stats["syncs"]``; the mesh reads every
+  shard's in one wait (``parallel/sharded_sketch.py``).
 * The log-shift ``_scan`` loops (a v5e workaround) are ``torch.cumsum`` /
   ``torch.cummax`` / ``torch.cummin``.
 * The kernel path is the JAX main path in its default configuration
@@ -254,7 +258,7 @@ def _read(x, stats):
 
 
 def _append_page(carry: _Carry, cand, mh_arg, *, k: int, seed: int,
-                 compact: bool = False, stats=None) -> None:
+                 compact: bool = False):
     """Append one candidate page to the spill, flushing first if needed.
 
     compact=True (duplicate-burst tiers): on overflow, first try to
@@ -266,8 +270,7 @@ def _append_page(carry: _Carry, cand, mh_arg, *, k: int, seed: int,
         compacted = False
         if compact and _compact_worthwhile(k):
             out, n_real, ovf = _compact_spill(carry.spill, k=k)
-            n_real, ovf = _read(torch.stack([n_real, ovf.to(n_real.dtype)]),
-                                stats)
+            n_real, ovf = yield torch.stack([n_real, ovf.to(n_real.dtype)])
             if not ovf and n_real + need <= sp - sp // 4:
                 carry.spill, carry.fill, compacted = out, n_real, True
         if not compacted:
@@ -280,10 +283,10 @@ def _append_page(carry: _Carry, cand, mh_arg, *, k: int, seed: int,
     carry.fill += need
 
 
-def _leading_pages(rows, stats) -> int:
+def _leading_pages(rows):
     """How many leading pages hold a survivor; rows[p] is page p's first
     row (the JAX loop condition, read in one transfer)."""
-    live = _read((rows != MAX).any(dim=1), stats)
+    live = yield (rows != MAX).any(dim=1)
     n = 0
     while n < len(live) and live[n]:
         n += 1
@@ -291,7 +294,7 @@ def _leading_pages(rows, stats) -> int:
 
 
 def _stage2_pages(carry, flat_cands, *, k, seed, mh_arg, aggregate=False,
-                  compact=False, stats=None) -> None:
+                  compact=False):
     """Re-compact candidates through a (STAGE2_H, w2) axis-0 sort and
     append row pages while the next page's leading row has survivors."""
     w2 = flat_cands.shape[0] // STAGE2_H
@@ -303,31 +306,31 @@ def _stage2_pages(carry, flat_cands, *, k, seed, mh_arg, aggregate=False,
     if (aggregate and shift
             and 64 - shift >= max(1, (w2 - 1).bit_length())):
         s2 = _aggregate_runs(s2, shift)
-    for p2 in range(_leading_pages(s2[::r2], stats)):
-        _append_page(carry, s2[p2 * r2:(p2 + 1) * r2].reshape(-1), mh_arg,
-                     k=k, seed=seed, compact=compact, stats=stats)
+    for p2 in range((yield from _leading_pages(s2[::r2]))):
+        yield from _append_page(carry, s2[p2 * r2:(p2 + 1) * r2].reshape(-1),
+                                mh_arg, k=k, seed=seed, compact=compact)
 
 
 def _run_two_stage(carry, comp, b: int, *, k, seed, mh_arg, aggregate=False,
-                   compact=False, stats=None) -> None:
+                   compact=False):
     s1, _ = u64.sort(comp.reshape(STAGE1_H, b // STAGE1_H), dim=0)
-    for p1 in range(_leading_pages(s1[::STAGE1_ROWS], stats)):
+    for p1 in range((yield from _leading_pages(s1[::STAGE1_ROWS]))):
         block = s1[p1 * STAGE1_ROWS:(p1 + 1) * STAGE1_ROWS]
-        _stage2_pages(carry, block.reshape(-1), k=k, seed=seed,
-                      mh_arg=mh_arg, aggregate=aggregate, compact=compact,
-                      stats=stats)
+        yield from _stage2_pages(carry, block.reshape(-1), k=k, seed=seed,
+                                 mh_arg=mh_arg, aggregate=aggregate,
+                                 compact=compact)
 
 
-def _run_small(carry, comp, b: int, *, k, seed, mh_arg, stats=None) -> None:
+def _run_small(carry, comp, b: int, *, k, seed, mh_arg):
     s1, _ = u64.sort(comp)
     page = min(b, PAGE)
     npages = (b + page - 1) // page
     if npages * page != b:
         s1 = torch.cat([s1, torch.full((npages * page - b,), MAX,
                                        dtype=torch.int64, device=s1.device)])
-    for p in range(_leading_pages(s1.view(npages, page)[:, :1], stats)):
-        _append_page(carry, s1[p * page:(p + 1) * page], mh_arg, k=k,
-                     seed=seed, stats=stats)
+    for p in range((yield from _leading_pages(s1.view(npages, page)[:, :1]))):
+        yield from _append_page(carry, s1[p * page:(p + 1) * page], mh_arg,
+                                k=k, seed=seed)
 
 
 def _tally(stats, name: str) -> None:
@@ -348,15 +351,15 @@ def _worth(a, k: int):
 def _kernel_step(carry, vlo, vhi, valid, thresh, hint: int, b: int, *,
                  k, seed, absorb, dedup_tier, stats, kw):
     """The kernel path of sketch_step (JAX ``_sketch_step`` :581-804): one
-    extract, the tier switch, the paging of the tier's candidates and the
-    next hint (a device tensor, or None to keep the old one)."""
+    extract, the tier switch, the paging of the tier's candidates; returns
+    the next hint (a device tensor, or None to keep the old one)."""
     w_ok = absorb and extract.supports_weighted(k)
     weighted = w_ok and hint != 0
     if weighted:
         _tally(stats, "extract_weighted")
     cand, slab, kh_lo, kh_hi, covf, aovf = extract.extract_candidates(
         vlo, vhi, thresh.reshape(1), k=k, seed=seed, weighted=weighted)
-    covf, aovf = _read(torch.stack([covf, aovf]), stats)
+    covf, aovf = yield torch.stack([covf, aovf])
     dirty = bool(covf or aovf)
     use_dedup = dedup_tier and dedup.supports_dedup(k, b)
     have_d2 = use_dedup and dedup.supports_dedup_slab(k, b)
@@ -366,7 +369,7 @@ def _kernel_step(carry, vlo, vhi, valid, thresh, hint: int, b: int, *,
         # a complete slab: D2 collapses its duplicates, or the step pages
         # the slab (B) — D would overflow too on the same multiset
         cand_d2, d2ovf = dedup.dedup_slab_candidates(slab, k=k)
-        if _read(d2ovf, stats):
+        if (yield d2ovf):
             _tally(stats, "D2_overflow")
             tier = "B"
         else:
@@ -375,7 +378,7 @@ def _kernel_step(carry, vlo, vhi, valid, thresh, hint: int, b: int, *,
         # the slab lost survivors (covf), or there is no D2 at this shape
         cand_d, dovf = dedup.dedup_candidates(vlo, vhi, kh_lo, kh_hi,
                                               thresh.reshape(1), k=k)
-        if _read(dovf, stats):
+        if (yield dovf):
             _tally(stats, "D_overflow")
             tier = "C" if covf else "B"
         else:
@@ -386,17 +389,18 @@ def _kernel_step(carry, vlo, vhi, valid, thresh, hint: int, b: int, *,
         tier = "C" if covf else "B"
     _tally(stats, f"tier_{tier}")
     if tier == "A":
-        _stage2_pages(carry, cand, **kw)
+        yield from _stage2_pages(carry, cand, **kw)
     elif tier == "D2":
-        _stage2_pages(carry, cand_d2, compact=True, **kw)
+        yield from _stage2_pages(carry, cand_d2, compact=True, **kw)
     elif tier == "D":
-        _stage2_pages(carry, cand_d, compact=True, **kw)
+        yield from _stage2_pages(carry, cand_d, compact=True, **kw)
     elif tier == "B":
-        _stage2_pages(carry, slab, aggregate=True, compact=True, **kw)
+        yield from _stage2_pages(carry, slab, aggregate=True, compact=True,
+                                 **kw)
     else:
         keep = valid & u64.le(u64.join(kh_lo, kh_hi), thresh)
         comp = torch.where(keep, u64.join(vlo, vhi) + 1, MAX)
-        _run_two_stage(carry, comp, b, compact=True, **kw)
+        yield from _run_two_stage(carry, comp, b, compact=True, **kw)
     if not w_ok:
         return None
     # adaptive-absorb feedback (JAX :764-804): a weighted step keeps the
@@ -408,7 +412,7 @@ def _kernel_step(carry, vlo, vhi, valid, thresh, hint: int, b: int, *,
         saw = (_worth(cand_d2, k) if cand_d2 is not None
                else torch.zeros((), dtype=torch.bool, device=vlo.device))
     else:
-        saw = torch.tensor(dirty and not covf, device=vlo.device)
+        saw = torch.full((), dirty and not covf, device=vlo.device)
     return saw.to(torch.int32).reshape(1)
 
 
@@ -428,7 +432,31 @@ def sketch_step(state, comp_lo, comp_hi, nvalid: int, max_hash: int,
     the JAX docstring). `stats`, when given, counts the tier each step
     took (tier_A, tier_D2, tier_B, tier_D, tier_C, two_stage, small), the
     weighted extracts (extract_weighted), the dedup runs that overflowed
-    (D2_overflow, D_overflow) and the host syncs."""
+    (D2_overflow, D_overflow) and the host syncs: one a value the step
+    reads, each read at once."""
+    gen = sketch_step_gen(state, comp_lo, comp_hi, nvalid, max_hash, k=k,
+                          seed=seed, has_max_hash=has_max_hash,
+                          use_kernel=use_kernel, absorb=absorb,
+                          dedup_tier=dedup_tier, stats=stats)
+    try:
+        x = next(gen)
+        while True:
+            x = gen.send(_read(x, stats))
+    except StopIteration as stop:
+        return stop.value
+
+
+def sketch_step_gen(state, comp_lo, comp_hi, nvalid: int, max_hash: int,
+                    *, k: int, seed: int, has_max_hash: bool,
+                    use_kernel: bool = False, absorb: bool = True,
+                    dedup_tier: bool = True, stats: dict | None = None):
+    """sketch_step as a coroutine: it yields each device tensor (0-dim or
+    1-D, bool or integer) whose values it needs on the host and expects
+    them sent back as ``tensor.tolist()`` gives them (a bool may come
+    back as an int); it returns (new_state, below). `stats` counts the
+    tallies, not the reads. Between its yields the step only enqueues
+    device work and never waits on a card, so a caller that answers
+    several coroutines' yields after one wait runs them side by side."""
     sh, sc, se, spk, spill, fill, hint = state
     b = comp_lo.shape[0]
     if b > (1 << 25):
@@ -441,14 +469,14 @@ def sketch_step(state, comp_lo, comp_hi, nvalid: int, max_hash: int,
     valid = torch.arange(b, device=dev) < nvalid
     thresh = sh[-1]
     if has_max_hash:
-        thresh = u64.maximum(thresh, torch.tensor(u64.to_i64(max_hash),
-                                                  device=dev))
+        thresh = u64.maximum(thresh, torch.full((), u64.to_i64(max_hash),
+                                                device=dev))
     mh_arg = max_hash if has_max_hash else 0
 
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    fill_n, hint_n = _read(torch.cat([fill, hint]), stats)
+    fill_n, hint_n = yield torch.cat([fill, hint])
     carry = _Carry((sh, sc, se, spk), spill.clone(), fill_n, zero)
-    kw = dict(k=k, seed=seed, mh_arg=mh_arg, stats=stats)
+    kw = dict(k=k, seed=seed, mh_arg=mh_arg)
 
     two_stage = (b >= STAGE1_H * STAGE2_H * 16
                  and b % (4096 * STAGE1_ROWS) == 0)
@@ -460,17 +488,17 @@ def sketch_step(state, comp_lo, comp_hi, nvalid: int, max_hash: int,
     if use_kernel and two_stage and extract.supports(k, b):
         vlo = torch.where(valid, comp_lo, -1)
         vhi = torch.where(valid, comp_hi, -1)
-        new_hint = _kernel_step(carry, vlo, vhi, valid, thresh, hint_n, b,
-                                k=k, seed=seed, absorb=absorb,
-                                dedup_tier=dedup_tier, stats=stats, kw=kw)
+        new_hint = yield from _kernel_step(
+            carry, vlo, vhi, valid, thresh, hint_n, b, k=k, seed=seed,
+            absorb=absorb, dedup_tier=dedup_tier, stats=stats, kw=kw)
         if new_hint is not None:
             hint = new_hint
     elif two_stage:
         _tally(stats, "two_stage")
-        _run_two_stage(carry, plain_comp(), b, **kw)
+        yield from _run_two_stage(carry, plain_comp(), b, **kw)
     else:
         _tally(stats, "small")
-        _run_small(carry, plain_comp(), b, **kw)
+        yield from _run_small(carry, plain_comp(), b, **kw)
 
     if has_max_hash:
         # conservative bound: distinct <= max_hash in the state plus real
@@ -481,7 +509,7 @@ def sketch_step(state, comp_lo, comp_hi, nvalid: int, max_hash: int,
         below = torch.maximum(carry.below, below_state + spill_real)
     else:
         below = zero
-    new_fill = torch.tensor([carry.fill], dtype=torch.int32, device=dev)
+    new_fill = torch.full((1,), carry.fill, dtype=torch.int32, device=dev)
     return (*carry.state4, carry.spill, new_fill, hint), below
 
 

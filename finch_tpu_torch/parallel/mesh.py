@@ -26,9 +26,10 @@ class Mesh:
     A device may repeat: repeated devices are logical shards that share
     one card (or the CPU). They split the work exactly as separate cards
     would, which is how a single card or the CPU checks the sharding
-    logic, but they run one after another and move no data between
-    cards. `group`, when given, is the `torch.distributed` process group
-    of a multi-process mesh; its rank and size are read from it.
+    logic, but their work shares one device (on a card, one stream) and
+    moves no data between cards. `group`, when given, is the
+    `torch.distributed` process group of a multi-process mesh; its rank
+    and size are read from it.
     `axis_name` labels the one axis, as JAX's mesh names its axes; no
     program reads it."""
 

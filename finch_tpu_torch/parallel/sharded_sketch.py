@@ -9,13 +9,19 @@ equal hashes), which the batch-equivalence theorem makes bit-identical
 to a single stream.
 
 What differs from the JAX package: `shard_map` runs one XLA program over
-all devices, with `psum` and `all_gather` over ICI. Here a Python loop
-steps the shards one after another, each on its own device; a scaled
-step's `below` is summed over the local shards on the first one and,
-across processes, by `all_reduce(SUM)`; the finalize merges the local
-shards on the first device and, across processes, `all_gather`s the
-merged state and merges again. Collectives carry u64 bit patterns as
-int64 unchanged, and only counts are ever summed.
+all devices, with `psum` and `all_gather` over ICI. Here the step runs
+the shards in lockstep: each shard's ``bottomk.sketch_step_gen``
+coroutine enqueues its device work up to its next host read, and one
+host wait a round answers every shard's read (``_read_together``), so
+the cards run side by side between waits and the host waits once a
+round, not once a shard's read. Each shard still takes its own tier,
+pages and compactions from its own flags; one that needs fewer reads
+drops out of the later rounds. A scaled step's `below` is summed over
+the local shards on the first device and, across processes, by
+`all_reduce(SUM)`; the finalize merges the local shards on the first
+device and, across processes, `all_gather`s the merged state and merges
+again. Collectives carry u64 bit patterns as int64 unchanged, and only
+counts are ever summed.
 """
 
 from __future__ import annotations
@@ -55,9 +61,13 @@ class ShardedSketchEngine:
     finalize meets in an all_gather. A process that steps more or fewer
     times than the others hangs the group: nothing detects it.
     Exactness is order-independent, so any split of the stream is
-    exact. `stats` sums sketch_step's tallies over every shard. `axis`
-    is accepted for the JAX package's signature and not read: the mesh
-    has one axis."""
+    exact. `stats` sums sketch_step's tallies over every shard;
+    `stats["syncs"]` counts the host waits (one a lockstep round, one a
+    scaled step's `below` sum) and `stats["shard_reads"]` the values the
+    shards asked for (what `syncs` would be if each shard waited alone).
+    A shard's error propagates out of update() and leaves every shard's
+    state as it was before the step. `axis` is accepted for the JAX
+    package's signature and not read: the mesh has one axis."""
 
     def __init__(self, params: SketchParams, mesh: Mesh, axis: str = "data",
                  batch_size_per_device: int = 1 << 20,
@@ -102,18 +112,24 @@ class ShardedSketchEngine:
 
     def _shard_planes(self, lo: np.ndarray, hi: np.ndarray, per_shard: int):
         """Each local shard's (lo, hi, nvalid): its contiguous slice,
-        zero-padded to per_shard lanes, on its device."""
+        zero-padded to per_shard lanes, on its device. Every shard's copy
+        starts before any shard steps, from pinned host memory when the
+        shards are cards, so no copy waits on a card."""
+        devices = self.mesh.devices
+        cards = any(d.type == "cuda" for d in devices)
+        host = torch.empty((len(devices), 2, per_shard), dtype=torch.int32,
+                           pin_memory=cards)
+        buf = host.numpy().view(np.uint32)
         out = []
         total = len(lo)
-        for i, dev in enumerate(self.mesh.devices):
+        for i, dev in enumerate(devices):
             a = min(i * per_shard, total)
             b = min((i + 1) * per_shard, total)
-            planes = []
-            for src in (lo, hi):
-                buf = np.zeros(per_shard, dtype=np.uint32)
-                buf[:b - a] = src[a:b]
-                planes.append(u64.from_numpy(buf, dev))
-            out.append((*planes, b - a))
+            buf[i, 0, :b - a] = lo[a:b]
+            buf[i, 1, :b - a] = hi[a:b]
+            buf[i, :, b - a:] = 0
+            planes = host[i].to(dev, non_blocking=True)
+            out.append((planes[0], planes[1], b - a))
         return out
 
     def _step(self, pk: np.ndarray, rc: np.ndarray) -> None:
@@ -127,14 +143,13 @@ class ShardedSketchEngine:
         shards = self._shard_planes(pk, rc, per_shard)
         is_scaled = self.params.sketch_type == "scaled"
         while True:
-            new_states, belows = [], []
-            for st, (lo, hi, nvalid) in zip(self.state, shards):
-                new_st, below = bottomk.sketch_step(
+            new_states, belows = zip(*self._lockstep([
+                bottomk.sketch_step_gen(
                     st, lo, hi, nvalid, self._mh, k=self.params.k,
                     seed=self.params.hash_seed, has_max_hash=is_scaled,
                     use_kernel=True, stats=self.stats)
-                new_states.append(new_st)
-                belows.append(below)
+                for st, (lo, hi, nvalid) in zip(self.state, shards)]))
+            new_states = list(new_states)
             if not is_scaled:
                 self.state = new_states
                 return
@@ -147,6 +162,31 @@ class ShardedSketchEngine:
             new_cap = max(self.capacity * 2, below_total + self.size)
             self.state = [bottomk.grow_state(s, new_cap) for s in self.state]
             self.capacity = new_cap
+
+    def _lockstep(self, gens):
+        """The `shard_map` step: each round runs every unfinished shard's
+        coroutine to its next read, then answers all the reads after one
+        host wait. Returns each coroutine's (new_state, below)."""
+        out = [None] * len(gens)
+        answers = [None] * len(gens)
+        live = range(len(gens))
+        while True:
+            asks, waiting = [], []
+            for i in live:
+                try:
+                    asks.append(gens[i].send(answers[i]))
+                except StopIteration as stop:
+                    out[i] = stop.value
+                else:
+                    waiting.append(i)
+            if not waiting:
+                return out
+            for i, v in zip(waiting, _read_together(asks)):
+                answers[i] = v
+            self.stats["syncs"] = self.stats.get("syncs", 0) + 1
+            self.stats["shard_reads"] = (self.stats.get("shard_reads", 0)
+                                         + len(asks))
+            live = waiting
 
     def _global_sum(self, belows) -> int:
         """The JAX psum: the local shards' `below` summed on the first
@@ -190,6 +230,44 @@ class ShardedSketchEngine:
 
     def finalize_arrays(self):
         return _finalize_arrays(self.params, *self._merged_arrays())
+
+
+def _read_together(tensors):
+    """The host values of `tensors` (each 0-dim or 1-D, bool or integer,
+    on any of the mesh's devices) after one wait, each as ``tolist()``
+    gives it (a bool may come back as an int). One concatenation a device
+    (torch.cat promotes bools and narrower integers); with several
+    devices, each card's is copied into pinned host memory on its current
+    stream and an event recorded behind the copy, and the events are
+    waited on only once every copy has been enqueued."""
+    by_dev = {}
+    for i, t in enumerate(tensors):
+        by_dev.setdefault(t.device, []).append(i)
+    flat = {d: torch.cat([tensors[i].reshape(-1) for i in idx])
+            for d, idx in by_dev.items()}
+    if len(flat) == 1:
+        values = {d: x.tolist() for d, x in flat.items()}
+    else:
+        hosts, events = {}, []
+        for d, x in flat.items():
+            if d.type == "cuda":
+                host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                host.copy_(x, non_blocking=True)
+                events.append(torch.cuda.current_stream(d).record_event())
+                x = host
+            hosts[d] = x
+        for ev in events:
+            ev.synchronize()
+        values = {d: x.tolist() for d, x in hosts.items()}
+    out = [None] * len(tensors)
+    for d, idx in by_dev.items():
+        pos = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = (values[d][pos] if tensors[i].dim() == 0
+                      else values[d][pos:pos + n])
+            pos += n
+    return out
 
 
 def sharded_state_from_numpy(arrays, mesh: Mesh):

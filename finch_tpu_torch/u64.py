@@ -104,8 +104,9 @@ def join(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 
 def _t(a, like):
-    """Promote a Python int operand to a tensor beside `like`."""
+    """Promote a Python int operand to a tensor beside `like` (a fill on
+    its device: no host-to-device copy, so no wait on a card)."""
     if isinstance(a, torch.Tensor):
         return a
-    return torch.tensor(to_i64(int(a)), dtype=torch.int64,
-                        device=like.device)
+    return torch.full((), to_i64(int(a)), dtype=torch.int64,
+                      device=like.device)

@@ -528,3 +528,33 @@ def test_two_shard_mesh_equals_torch_engine(cuda, scheme):
     steps = sum(sharded.stats.get(f"tier_{t}", 0)
                 for t in ("A", "D2", "B", "D", "C"))
     assert steps >= 6   # every shard step took the kernel path
+
+
+def test_four_shard_lockstep_mesh_equals_torch_engine(cuda):
+    """4 logical shards of 512k lanes on the card step in lockstep (one
+    host wait a round for every shard's read): the sketch is
+    TorchEngine's on the same 2M-lane batches, with fewer host syncs than
+    the shards made reads."""
+    from finch_tpu_torch.models.engine import TorchEngine
+    from finch_tpu_torch.models.params import SketchParams
+    from finch_tpu_torch.parallel import Mesh, ShardedSketchEngine
+
+    params = SketchParams.mash(kmers_to_sketch=200_000, final_size=1000)
+    sharded = ShardedSketchEngine(params, Mesh([cuda] * 4),
+                                  batch_size_per_device=1 << 19)
+    single = TorchEngine(params, device=cuda)
+    rng = np.random.default_rng(22)
+    pool = rng.integers(0, 4 ** 21, size=1 << 20, dtype=np.uint64)
+    for i in range(4):
+        pk = (pool[rng.integers(0, len(pool), size=1 << 21)] if i % 2
+              else rng.integers(0, 4 ** 21, size=1 << 21, dtype=np.uint64))
+        rc = rng.integers(0, 2, size=1 << 21, dtype=np.uint8)
+        sharded.update(pk, rc)
+        single.update(pk, rc)
+    torch.cuda.synchronize()
+    for a, b in zip(sharded.finalize_arrays(), single.finalize_arrays()):
+        np.testing.assert_array_equal(a, b)
+    stats = sharded.stats
+    assert sum(stats.get(f"tier_{t}", 0)
+               for t in ("A", "D2", "B", "D", "C")) == 16
+    assert stats["syncs"] < stats["shard_reads"]

@@ -85,13 +85,17 @@ def run(request):
         for e in (jeng, teng_, neng):
             e.update(pk, rc)
     mh = tp.max_hash() or 0
-    jflushed = [jbk.flush_state(tuple(x[i] for x in jeng.state),
+    # flush host rows: indexing the sharded state (x[i]) is a program over
+    # all 8 devices with an all-reduce, whose 8-thread rendezvous a loaded
+    # host can hold past XLA's 40 s limit, which aborts the process
+    raw = [np.asarray(x) for x in jeng.state]
+    jflushed = [jbk.flush_state(tuple(x[i] for x in raw),
                                 np.uint64(mh), k=11, seed=0)[0]
                 for i in range(8)]
     jrows = tuple(np.stack([np.asarray(s[j]) for s in jflushed])
                   for j in range(7))
     return dict(scheme=scheme, params=tp, jax=_rows(jeng.finalize()),
-                jrows=jrows, raw=[np.asarray(x) for x in jeng.state],
+                jrows=jrows, raw=raw,
                 torch=teng_, numpy=_rows(neng.finalize()), batches=batches)
 
 
