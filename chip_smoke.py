@@ -41,8 +41,14 @@ through the port's CLI on the card, and then drives these paths:
 * [wide] sketches [main]'s isolate at k = 51 (sourmash's largest standard
   k; about 100M 51-mers) at the CLI defaults otherwise, three ways: the
   torch backend on the card (the two-word wide step, ops/bottomk_wide.py),
-  the native host fold and auto (which keeps k > 31 on the host). The
-  three .sk byte strings must be identical. One more torch run under the
+  the native host fold and auto (the host fold for the first 4M k-mers,
+  then the same wide step on the card: it must migrate). The three .sk
+  byte strings must be identical; auto's wall is printed over torch's.
+  The first 20,000 reads (about 2M 51-mers, below the switch point) go
+  through auto, which must stay on the host and equal native's bytes;
+  auto and torch are also timed on that file in fresh processes, where
+  torch pays the card's cold start. auto's and a cold TorchEngine's
+  first three batches are timed one by one. One more torch run under the
   port's profiler hook (utils.trace) gives the card's busy share and each
   wide.<phase> range's device time. Then the first 8 batches of 2M lanes
   fold with TorchEngine on the card and on the CPU, mash and scaled (the
@@ -82,6 +88,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import hashlib
 import json
 import os
 import shutil
@@ -1631,6 +1638,7 @@ def dist_full_matrix(H, sks, G) -> dict:
 WIDE_K = 51              # sourmash's standard k: 21, 31 and 51
 XWIDE_K = 101
 XWIDE_READS = 20_000
+WIDE_SMALL_READS = 20_000  # about 2M 51-mers: auto stays on the host
 WIDE_HOLD_BATCHES = 8    # 2M-lane batches folded on the card and the CPU
 WIDE_PHASES = ("hash", "select", "batch_sort", "batch_runs", "merge_sort",
                "merge_runs")
@@ -1692,11 +1700,13 @@ def phase_wide(fq: str, tmp: str) -> dict:
 
     from finch_tpu_torch import cli
     from finch_tpu_torch.core.sketching import sketch_stream
-    from finch_tpu_torch.models.engine import NumpyEngine, TorchEngine
+    from finch_tpu_torch.models.engine import (HybridEngine, NumpyEngine,
+                                               TorchEngine)
     from finch_tpu_torch.models.params import SketchParams
     from finch_tpu_torch.native import KmerReader
     from finch_tpu_torch.serialization.json_sk import \
         multisketch_to_json_bytes
+    from finch_tpu_torch.tools.switch_point import cold_wall, fastq_head
 
     def cli_params(path: str, k: int, extra=()):
         args = cli.build_cli().parse_args(
@@ -1727,7 +1737,8 @@ def phase_wide(fq: str, tmp: str) -> dict:
     out["native"] = {"s": secs}
     log(f"[wide] k={WIDE_K} native host fold: {kmers} k-mers in {secs:.2f} "
         f"s ({kmers / secs:.4g} k-mers/s)")
-    for backend in ("torch", "auto"):
+    # torch, auto, auto, torch: each backend's wall is the mean of its two
+    for backend in ("torch", "auto", "auto", "torch"):
         got, _, secs, stats, engines = run(fq, params, filters, backend)
         if got != ref:
             raise AssertionError(f"[wide] {backend} sketch differs from "
@@ -1736,13 +1747,52 @@ def phase_wide(fq: str, tmp: str) -> dict:
                                    or stats.get("syncs", 0)):
             raise AssertionError(f"[wide] torch took no wide step or "
                                  f"synced on a mash run: {stats}")
-        if backend == "auto" and getattr(engines[0], "_dev", None):
-            raise AssertionError("[wide] auto left the host fold")
-        out[backend] = {"s": secs, "stats": stats}
+        if backend == "auto" and (engines[0]._dev is None
+                                  or stats.get("wide", 0) < 1):
+            raise AssertionError(f"[wide] auto did not migrate to the "
+                                 f"card: {stats}")
+        o = out.setdefault(backend, {"runs_s": [], "stats": stats})
+        o["runs_s"].append(secs)
         log(f"[wide] k={WIDE_K} {backend} on cuda: {kmers} k-mers in "
             f"{secs:.2f} s ({kmers / secs:.4g} k-mers/s); wide steps "
             f"{stats.get('wide', 0)}, host syncs {stats.get('syncs', 0)}; "
             f".sk identical to native")
+    for o in (out["torch"], out["auto"]):
+        o["s"] = sum(o["runs_s"]) / len(o["runs_s"])
+    log(f"[wide] k={WIDE_K} auto {out['auto']['s']:.3f} s / torch "
+        f"{out['torch']['s']:.3f} s = "
+        f"{out['auto']['s'] / out['torch']['s']:.3f} (means of 2 runs; "
+        f"native {out['native']['s']:.3f} s)")
+
+    # a small file, below the switch point: auto stays on the host; then
+    # auto and torch each in two fresh processes (auto, torch, torch,
+    # auto), where torch's wall holds the card's cold start
+    small = fastq_head(fq, os.path.join(tmp, "isolate_small.fastq"),
+                       WIDE_SMALL_READS)
+    # unfiltered: at 0.6x of the genome, the error filter leaves too few
+    sparams, sfilters = cli_params(small, WIDE_K, ["--no-filter"])
+    sref, ssk, s_native, _, _ = run(small, sparams, sfilters, "native")
+    sgot, _, s_auto, sstats, engines = run(small, sparams, sfilters, "auto")
+    if sgot != sref or engines[0]._dev is not None or sstats:
+        raise AssertionError("[wide] auto on the small file left the host "
+                             "or differs from native")
+    cold = {"auto": [], "torch": []}
+    for backend in ("auto", "torch", "torch", "auto"):
+        row = cold_wall(small, WIDE_K, backend, ["--no-filter"])
+        if row["sha"] != hashlib.sha256(sref).hexdigest():
+            raise AssertionError(f"[wide] {backend} in a fresh process "
+                                 "differs from native on the small file")
+        if row["host"] != (backend == "auto"):
+            raise AssertionError(f"[wide] fresh {backend} process: host "
+                                 f"fold {row['host']}")
+        cold[backend].append(row["s"])
+    out["small"] = {"kmers": ssk.num_valid_kmers, "native_s": s_native,
+                    "auto_s": s_auto, "cold_s": cold}
+    log(f"[wide] k={WIDE_K} small file ({WIDE_SMALL_READS} reads, "
+        f"{ssk.num_valid_kmers} k-mers): auto stayed on the host, == native "
+        f"({s_auto:.3f} s in process, native {s_native:.3f} s); fresh "
+        f"processes: auto {cold['auto'][0]:.3f} {cold['auto'][1]:.3f} s, "
+        f"torch {cold['torch'][0]:.3f} {cold['torch'][1]:.3f} s")
     launches = read_launches()
     if any(launches.values()):
         raise AssertionError(f"[wide] the wide path launched {launches}")
@@ -1772,6 +1822,26 @@ def phase_wide(fq: str, tmp: str) -> dict:
         batches.append((packed, rc))
         if len(batches) == WIDE_HOLD_BATCHES:
             break
+    # where auto's time goes: its first batches one by one (the host fold,
+    # the fold and the migration, a card step) beside a cold TorchEngine's
+    per_batch = {}
+    for name, eng in (("auto", HybridEngine(params, device="cuda")),
+                      ("torch", TorchEngine(params, device="cuda"))):
+        per_batch[name] = []
+        for packed, rc in batches[:3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.update(packed, rc)
+            torch.cuda.synchronize()
+            per_batch[name].append(time.perf_counter() - t0)
+        if name == "auto" and (eng._dev is None or eng.stats != {"wide": 1}):
+            raise AssertionError(f"[wide] auto did not migrate after two "
+                                 f"batches: {eng.stats}")
+    out["per_batch_s"] = per_batch
+    log("[wide] first 3 batches of 2M lanes, s: auto (host, host + "
+        "migration, card) " + " ".join(f"{x:.4f}" for x in per_batch["auto"])
+        + "; torch " + " ".join(f"{x:.4f}" for x in per_batch["torch"]))
+
     scaled = SketchParams.scaled(kmers_to_sketch=1000, scale=0.001,
                                  kmer_length=WIDE_K)
     for name, p in (("mash", params), ("scaled", scaled)):
@@ -1921,15 +1991,6 @@ def record_sharded():
         ShardedSketchEngine.__init__ = init
 
 
-def fastq_head(src: str, dst: str, reads: int) -> str:
-    """The first `reads` records of a 4-line FASTQ."""
-    import itertools
-
-    with open(src, "rb") as f, open(dst, "wb") as g:
-        g.writelines(itertools.islice(f, 4 * reads))
-    return dst
-
-
 def free_port() -> int:
     import socket
 
@@ -1978,6 +2039,7 @@ def _mesh_runs(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
                                           sharded_dist)
     from finch_tpu_torch.serialization.json_sk import \
         multisketch_to_json_bytes
+    from finch_tpu_torch.tools.switch_point import fastq_head
 
     t_phase = time.perf_counter()
 

@@ -22,13 +22,14 @@ scaled — all distinct hashes <= max_hash plus the smallest above-threshold
 Payloads: one u64 code word for k <= 31, a (lo, hi) pair of word arrays
 for wide k (32..63), an (n, k) uint8 ASCII matrix for xwide k (>= 64).
 TorchEngine folds wide k on the card (ops/bottomk_wide.py) and xwide k on
-the host, as the JAX package does; HybridEngine keeps k > 31 on the host.
+the host, as the JAX package does; HybridEngine migrates k <= 63 to the
+card and keeps xwide k on the host.
 
 Device rule: the device engines run on "cuda" unless the caller asks for
 "cpu"; without a card they raise (``resolve_device``) and never fall back
 to the CPU silently, at any k. The mesh backend (make_engine "mesh", and
-"auto" when more than one card is present) shards the stream over every
-card (parallel/sharded_sketch.py).
+"auto" at k <= 31 when more than one card is present) shards the stream
+over every card (parallel/sharded_sketch.py).
 """
 
 from __future__ import annotations
@@ -418,9 +419,15 @@ class HybridEngine:
 
     Small inputs finish on the host; once the stream crosses
     `switch_after` k-mers, the host state — already the exact sorted
-    bottom-k with counts — seeds a device state (bottomk.state_from_numpy)
-    and sketching continues on the card. Bit-identical either way. Wide
-    and xwide k (k > 31) stay on the host fold, as in the JAX package."""
+    bottom-k with counts — seeds a device state (bottomk.state_from_numpy,
+    or bottomk_wide.state_from_numpy for wide k, 32 <= k <= 63) and
+    sketching continues on the card. Bit-identical either way. xwide k
+    (k >= 64) stays on the host fold, as in the JAX package, which has no
+    device path for it. Unlike the JAX package, wide k migrates too: its
+    host fold is the NumPy one (NativeEngine), several times slower than
+    the card's wide step on a large stream, though still faster than a
+    cold card start up to the default switch point (tools/switch_point.py;
+    PERF.md)."""
 
     def __init__(self, params: SketchParams, batch_size: int = 1 << 21,
                  switch_after: int = 4 << 20, device="cuda"):
@@ -434,7 +441,7 @@ class HybridEngine:
         self._seen = 0
 
     def _migrate(self) -> None:
-        from finch_tpu_torch.ops import bottomk
+        from finch_tpu_torch.ops import bottomk, bottomk_wide
 
         dev = TorchEngine(self.params, batch_size=self.batch_size,
                           device=self.device)
@@ -443,16 +450,21 @@ class HybridEngine:
         while dev.capacity < n:
             # a scaled host state may exceed the initial device capacity
             dev.capacity *= 2
-        arrays = [np.full(dev.capacity, U64_MAX, dtype=np.uint64),
-                  np.zeros(dev.capacity, dtype=np.uint64),
-                  np.zeros(dev.capacity, dtype=np.uint64),
-                  np.zeros(dev.capacity, dtype=np.uint64)]
-        for dst, src in zip(arrays, (hh, hc, he, hpk)):
-            dst[:n] = src
-        arrays += [np.full(bottomk.spill_capacity(dev.capacity), U64_MAX,
-                           dtype=np.uint64),
-                   np.zeros(1, dtype=np.int32), np.zeros(1, dtype=np.int32)]
-        dev.state = bottomk.state_from_numpy(arrays, self.device)
+        if dev.wide:
+            dev.state = bottomk_wide.state_from_numpy(
+                hh, hc, he, *hpk, dev.capacity, self.device)
+        else:
+            arrays = [np.full(dev.capacity, U64_MAX, dtype=np.uint64),
+                      np.zeros(dev.capacity, dtype=np.uint64),
+                      np.zeros(dev.capacity, dtype=np.uint64),
+                      np.zeros(dev.capacity, dtype=np.uint64)]
+            for dst, src in zip(arrays, (hh, hc, he, hpk)):
+                dst[:n] = src
+            arrays += [np.full(bottomk.spill_capacity(dev.capacity),
+                               U64_MAX, dtype=np.uint64),
+                       np.zeros(1, dtype=np.int32),
+                       np.zeros(1, dtype=np.int32)]
+            dev.state = bottomk.state_from_numpy(arrays, self.device)
         self._dev = dev
         self._host = None
 
@@ -464,12 +476,12 @@ class HybridEngine:
         if self._dev is not None:
             self._dev.update(packed, rc)
             return
-        if self.params.k > 31:
-            # wide k stays on the host fold (NativeEngine -> NumPy); the
-            # migration is a narrow-k throughput path
+        if self.params.k > 63:
+            # xwide k has no device step (TorchEngine refuses it)
             self._host.update(packed, rc)
             return
-        if packed.dtype == np.uint32:
+        wide = isinstance(packed, tuple)  # (lo, hi) code words
+        if not wide and packed.dtype == np.uint32:
             # composite planes: decode for the host fold
             comp = ((rc.astype(np.uint64) << np.uint64(32))
                     | packed.astype(np.uint64))
@@ -477,7 +489,7 @@ class HybridEngine:
                               (packed & np.uint32(1)).astype(np.uint8))
         else:
             self._host.update(packed, rc)
-        self._seen += len(packed)
+        self._seen += len(packed[0] if wide else packed)
         if self._seen >= self.switch_after:
             self._migrate()
 
@@ -528,9 +540,10 @@ def make_engine(params: SketchParams, backend: str = "auto",
         if resolve_device(device).type == "cuda":
             if torch.cuda.device_count() > 1 and params.k <= 31:
                 # several cards: shard the stream over all of them, as the
-                # JAX package does. The shards step in lockstep (one host
-                # wait a round answers every shard's flags); the mesh has
-                # no host fold for small inputs
+                # JAX package does. The mesh is slower than the torch
+                # backend on one card (one host thread issues every
+                # shard's calls) but faster than HybridEngine on one card,
+                # which is what auto would run there (PERF.md)
                 return _mesh_engine(params, batch_size, device)
             return HybridEngine(params, batch_size=batch_size, device=device)
         return NativeEngine(params)

@@ -37,10 +37,12 @@ here meet: an entry with count 0 (a pad) has hash u64::MAX.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from finch_tpu_torch import u64
+from finch_tpu_torch.errors import FinchMessageError
 from finch_tpu_torch.ops.murmur3 import hash_packed_kmers_wide
 
 MAX = u64.MAX
@@ -184,6 +186,29 @@ def state_arrays(state):
 def state_to_numpy(state):
     """The raw state as numpy uint64 arrays, pads included."""
     return tuple(u64.to_numpy(x) for x in state)
+
+
+def state_from_numpy(h, c, e, plo, phi, capacity: int, device="cpu"):
+    """A state of `capacity` slots from a host fold's live entries (numpy
+    uint64, hash ascending and distinct; the inverse of state_arrays): the
+    entries fill the first slots, pads the rest.
+
+    The host keeps no is-rc bit (its strand is in `e`), so phirc is
+    ``phi << 2 | 1`` with bit 1 clear. Nothing reads that bit back:
+    state_arrays shifts it out, and a run's payload comes from its last
+    element, which for one hash carries the same code whatever its strand.
+    At k = 62 and 63 the shift moves phi's top bits into the word's sign
+    bit, where the u64 carrier keeps them."""
+    n = len(h)
+    if n > capacity:
+        raise FinchMessageError(
+            f"{n} entries do not fit a wide state of capacity {capacity}")
+    out = [np.full(capacity, np.uint64(2**64 - 1), dtype=np.uint64)] + [
+        np.zeros(capacity, dtype=np.uint64) for _ in range(4)]
+    phirc = (np.asarray(phi, dtype=np.uint64) << np.uint64(2)) | np.uint64(1)
+    for dst, src in zip(out, (h, c, e, plo, phirc)):
+        dst[:n] = src
+    return tuple(u64.from_numpy(a, device) for a in out)
 
 
 def merge_states(states):

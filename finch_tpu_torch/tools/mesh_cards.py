@@ -4,10 +4,13 @@
         [--against DIR]
 
 Sketches FASTQ at the CLI defaults with the torch backend (TorchEngine on
-cuda:0) and the mesh backend (ShardedSketchEngine over every card, one
-shard a card, as `--backend auto` takes it on a machine with several
-cards), after one warm-up run of each, in turns: torch, mesh, mesh,
-torch, ... for N pairs. Every run ends with a synchronize of every card.
+cuda:0), the mesh backend (ShardedSketchEngine over every card, one shard
+a card, as `--backend mesh` takes it) and the auto backend (what `finch
+sketch` takes by default: the mesh where several cards are present,
+HybridEngine on cuda:0 where one is; so on several cards it times the
+route again), after one warm-up run of each, in turns: torch, mesh, auto,
+auto, mesh, torch, ... for N rounds. Every run ends with a synchronize of
+every card.
 Prints the cards (nvidia-smi's name and power limit), then one JSON line
 a run: the backend, its wall in seconds, the engine's host syncs and,
 where the engine counts them, the values its shards asked the host for
@@ -82,7 +85,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("fastq")
     ap.add_argument("--pairs", type=int, default=3,
-                    help="timed (torch, mesh) pairs after the warm-up")
+                    help="timed rounds of (torch, mesh, auto) after the "
+                         "warm-up")
     ap.add_argument("--against", metavar="DIR",
                     help="another checkout to run in turns with this one")
     opts = ap.parse_args(argv)
@@ -140,12 +144,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"{backend}: .sk differs from the first "
                                  "run's")
 
-    run("torch", "warm-up")
-    run("mesh", "warm-up")
+    backends = ("torch", "mesh", "auto")
+    for backend in backends:
+        run(backend, "warm-up")
     for i in range(opts.pairs):
-        order = ("torch", "mesh") if i % 2 == 0 else ("mesh", "torch")
-        for backend in order:
-            run(backend, f"pair {i}")
+        for backend in (backends if i % 2 == 0 else backends[::-1]):
+            run(backend, f"round {i}")
     for m in medians(rows, ("backend",)):
         print(json.dumps(m))
     return 0

@@ -498,6 +498,26 @@ def test_wide_step_card_equals_cpu(cuda, k, scaled):
         assert engines[0].capacity > cap0
 
 
+def test_hybrid_wide_migrates_on_card(cuda):
+    """HybridEngine at k = 51 (the default switch point, 4M k-mers) folds
+    the first 2M-lane batches on the host, then migrates onto the card's
+    wide step; its sketch equals NumpyEngine's on the same batches."""
+    from finch_tpu_torch.models.engine import HybridEngine, NumpyEngine
+    from finch_tpu_torch.models.params import SketchParams
+
+    params = SketchParams.mash(kmers_to_sketch=1000, final_size=1000,
+                               kmer_length=51, no_strict=True)
+    hyb, host = HybridEngine(params, device=cuda), NumpyEngine(params)
+    for i, (packed, rc) in enumerate(_wide_batches(51, 4, 1 << 21, 9)):
+        hyb.update(packed, rc)
+        host.update(packed, rc)
+        assert (hyb._dev is not None) == (i >= 2)
+    assert hyb._dev.device.type == "cuda" and hyb.stats["wide"] == 1
+    got, want = hyb.finalize_arrays(), host.finalize_arrays()
+    for a, b in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+        np.testing.assert_array_equal(a, b)
+
+
 # --- the mesh: logical shards on one card ---
 
 @pytest.mark.parametrize("scheme", ["mash", "scaled"])
