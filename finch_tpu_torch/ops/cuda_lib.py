@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict = {}
 _fns: dict = {}
 
@@ -96,6 +97,14 @@ def launch(fn, dev: torch.device, *args) -> int:
         return fn(*args, _stream(dev))
     with torch.cuda.device(dev):
         return fn(*args, _stream(dev))
+
+
+def count(wrapper, name: str = "launches") -> None:
+    """Add one to the launch counter `wrapper.<name>`. One lock serves
+    every wrapper: the mesh's shards launch from several threads, and an
+    unlocked `+= 1` on an attribute can lose an increment."""
+    with _count_lock:
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _stream(dev: torch.device) -> int:

@@ -125,7 +125,7 @@ def dedup_candidates(vlo, vhi, hash_lo, hash_hi, thresh, *, k: int):
                                       k=k)
     out = _launch("finch_dedup", dev, *(t.data_ptr() for t in planes),
                   thresh.data_ptr(), b // CHUNK, 2 * k + 2)
-    dedup_candidates.launches += 1
+    cuda_lib.count(dedup_candidates)
     return out
 
 
@@ -152,7 +152,7 @@ def dedup_slab_candidates(slab, *, k: int):
         return dedup_slab_candidates_plain(slab, k=k)
     out = _launch("finch_dedup_slab", dev, slab.data_ptr(), nchunks,
                   2 * k + 2)
-    dedup_slab_candidates.launches += 1
+    cuda_lib.count(dedup_slab_candidates)
     return out
 
 

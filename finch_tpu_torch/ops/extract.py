@@ -160,10 +160,8 @@ def extract_candidates(vlo: torch.Tensor, vhi: torch.Tensor,
     if err != 0:
         raise FinchMessageError(f"extract kernel launch failed: CUDA error "
                                 f"{err}")
-    if weighted:
-        extract_candidates.launches_weighted += 1
-    else:
-        extract_candidates.launches += 1
+    cuda_lib.count(extract_candidates,
+                   "launches_weighted" if weighted else "launches")
     covf, aovf = flags.unbind()
     return cand, slab, h_lo, h_hi, covf, aovf
 

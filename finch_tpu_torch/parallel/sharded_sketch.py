@@ -63,8 +63,10 @@ class ShardedSketchEngine:
     Exactness is order-independent, so any split of the stream is
     exact. `stats` sums sketch_step's tallies over every shard;
     `stats["syncs"]` counts the host waits (one a lockstep round, one a
-    scaled step's `below` sum) and `stats["shard_reads"]` the values the
-    shards asked for (what `syncs` would be if each shard waited alone).
+    scaled step's `below` sum, and each wait for an upload buffer's
+    copies that had not finished, also in `stats["upload_waits"]`) and
+    `stats["shard_reads"]` the values the shards asked for (what `syncs`
+    would be if each shard waited alone).
     A shard's error propagates out of update() and leaves every shard's
     state as it was before the step. `axis` is accepted for the JAX
     package's signature and not read: the mesh has one axis."""
@@ -95,6 +97,11 @@ class ShardedSketchEngine:
         self._mh = self.max_hash if self.max_hash is not None else 0
         self.wants_composite = True
         self.stats: dict = {}
+        # the two upload buffers, used in turn, and the events behind the
+        # copies out of each (one a card)
+        self._bufs = [None, None]
+        self._copied = [[], []]
+        self._turn = 0
 
     def _empty_state(self, capacity: int):
         return [bottomk.empty_state(capacity, device=d)
@@ -113,12 +120,19 @@ class ShardedSketchEngine:
     def _shard_planes(self, lo: np.ndarray, hi: np.ndarray, per_shard: int):
         """Each local shard's (lo, hi, nvalid): its contiguous slice,
         zero-padded to per_shard lanes, on its device. Every shard's copy
-        starts before any shard steps, from pinned host memory when the
-        shards are cards, so no copy waits on a card."""
+        starts before any shard steps, from one of two persistent host
+        buffers used in turn (pinned when the shards are cards), so no
+        copy waits on a card and no step allocates pinned memory."""
         devices = self.mesh.devices
-        cards = any(d.type == "cuda" for d in devices)
-        host = torch.empty((len(devices), 2, per_shard), dtype=torch.int32,
-                           pin_memory=cards)
+        j = self._turn
+        self._turn ^= 1
+        self._wait_copies(j)
+        need = len(devices) * 2 * per_shard
+        if self._bufs[j] is None or self._bufs[j].numel() < need:
+            self._bufs[j] = torch.empty(
+                need, dtype=torch.int32,
+                pin_memory=any(d.type == "cuda" for d in devices))
+        host = self._bufs[j][:need].view(len(devices), 2, per_shard)
         buf = host.numpy().view(np.uint32)
         out = []
         total = len(lo)
@@ -128,9 +142,23 @@ class ShardedSketchEngine:
             buf[i, 0, :b - a] = lo[a:b]
             buf[i, 1, :b - a] = hi[a:b]
             buf[i, :, b - a:] = 0
-            planes = host[i].to(dev, non_blocking=True)
+            # a copy on the CPU too: the buffer is refilled two steps on
+            planes = host[i].to(dev, non_blocking=True, copy=True)
             out.append((planes[0], planes[1], b - a))
+        self._copied[j] = [torch.cuda.current_stream(d).record_event()
+                           for d in dict.fromkeys(devices) if d.type == "cuda"]
         return out
+
+    def _wait_copies(self, j: int) -> None:
+        """Wait until the copies out of upload buffer j are done. They
+        were issued two steps ago, and every shard's reads since waited
+        behind them on its card, so this wait does not block the host; one
+        that would is counted in `syncs` and `upload_waits`."""
+        for ev in self._copied[j]:
+            if not ev.query():
+                for name in ("syncs", "upload_waits"):
+                    self.stats[name] = self.stats.get(name, 0) + 1
+                ev.synchronize()
 
     def _step(self, pk: np.ndarray, rc: np.ndarray) -> None:
         if pk.dtype != np.uint32:

@@ -14,8 +14,12 @@ every card.
 Prints the cards (nvidia-smi's name and power limit), then one JSON line
 a run: the backend, its wall in seconds, the engine's host syncs and,
 where the engine counts them, the values its shards asked the host for
-(`shard_reads`), and the first 16 hex digits of the .sk bytes' SHA-256;
-last, one JSON line a backend with the median wall of the timed runs.
+(`shard_reads`), its steps by tier, and the first 16 hex digits of the
+.sk bytes' SHA-256;
+then one more mesh run under torch.profiler (`profile_mesh`: each
+stream's busy time and the time two or more streams, so two or more
+cards, were busy at once); last, one JSON line a backend with the median
+wall of the timed runs.
 
 --against DIR compares this checkout with another one (DIR, the root of
 an unpacked checkout): the script runs itself in four processes, DIR's
@@ -52,6 +56,67 @@ def medians(rows, keys) -> list:
              "syncs": sorted({r["syncs"] for r in rs}),
              "shard_reads": sorted({str(r["shard_reads"]) for r in rs})}
             for key, rs in groups.items()]
+
+
+def _busy(intervals) -> list:
+    """The union of (start, end) intervals, as sorted disjoint ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def profile_mesh(fn, kernels=()) -> dict:
+    """fn() once under torch.profiler. Returns, in seconds of the
+    profiled run: `streams`, each device stream's busy time (the
+    union of its kernels, copies and sets; `cuda:<card>/<trace stream
+    id>`; the record_function ranges the trace mirrors onto the card
+    are left out);
+    `kernel_streams`, the streams that ran a kernel whose name holds one
+    of `kernels`; `busy_s`, the time any stream was busy, and
+    `overlap_s`, the time two or more were; `top`, the six names of
+    device work that took the most time ([name, ms, count]; summed over
+    every card and stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_stream, kernel_streams, by_name = {}, set(), {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            if e.is_user_annotation:
+                # a record_function range mirrored onto the card's
+                # timeline, from its first kernel to its last: no work
+                continue
+            sid = f"cuda:{e.device_index}/{e.device_resource_id}"
+            by_stream.setdefault(sid, []).append(
+                (e.time_range.start, e.time_range.end))
+            if any(k in e.name for k in kernels):
+                kernel_streams.add(sid)
+            ms, count = by_name.get(e.name[:60], (0.0, 0))
+            by_name[e.name[:60]] = (ms + e.time_range.elapsed_us() / 1e3,
+                                    count + 1)
+    busy = {sid: _busy(iv) for sid, iv in by_stream.items()}
+    edges = sorted((t, d) for iv in busy.values() for a, b in iv
+                   for t, d in ((a, 1), (b, -1)))
+    active, last, any_s, two_s = 0, None, 0.0, 0.0
+    for t, d in edges:
+        if last is not None:
+            any_s += (t - last) * (active >= 1)
+            two_s += (t - last) * (active >= 2)
+        active, last = active + d, t
+    return {"streams": {sid: sum(b - a for a, b in iv) / 1e6
+                        for sid, iv in sorted(busy.items())},
+            "kernel_streams": sorted(kernel_streams),
+            "busy_s": any_s / 1e6, "overlap_s": two_s / 1e6,
+            "top": sorted(([n, ms, c] for n, (ms, c) in by_name.items()),
+                          key=lambda r: -r[1])[:6]}
 
 
 def against(opts) -> int:
@@ -138,6 +203,8 @@ def main(argv=None) -> int:
             "shards": getattr(engines[0], "n", 1), "s": secs,
             "kmers": sk.num_valid_kmers, "syncs": stats.get("syncs"),
             "shard_reads": stats.get("shard_reads"),
+            "tiers": {n: c for n, c in sorted(stats.items())
+                      if n.startswith("tier_")},
             "sk_sha256": hashlib.sha256(got).hexdigest()[:16]})
         print(json.dumps(rows[-1]), flush=True)
         if rows[-1]["sk_sha256"] != rows[0]["sk_sha256"]:
@@ -150,6 +217,12 @@ def main(argv=None) -> int:
     for i in range(opts.pairs):
         for backend in (backends if i % 2 == 0 else backends[::-1]):
             run(backend, f"round {i}")
+    # the mesh once more under torch.profiler, untimed: how long its cards
+    # were busy at once
+    prof = profile_mesh(lambda: sketch_stream(
+        opts.fastq, opts.fastq, params, filters, backend="mesh",
+        device="cuda"), ("extract_", "dedup_"))
+    print(json.dumps({"profile": "mesh", **prof}), flush=True)
     for m in medians(rows, ("backend",)):
         print(json.dumps(m))
     return 0
