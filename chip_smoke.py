@@ -16,9 +16,11 @@ through the port's CLI on the card, and then drives these paths:
   CLI defaults three ways: the auto backend on the card (host fold
   migrating to the device), the torch backend on the card (a cold start on
   the device) and the native host fold, an independent implementation.
-  The three .sk byte strings must be identical. Then an A/B of the torch
-  backend against the A/B/C-only configuration (sketch_step
-  absorb=False, dedup_tier=False), five pairs in turns.
+  The three .sk byte strings must be identical. The parse alone (the
+  file through the fill-in-place reader into two reused buffers, no
+  engine) is timed three times. Then an A/B of the torch backend against
+  the A/B/C-only configuration (sketch_step absorb=False,
+  dedup_tier=False), five pairs in turns.
 * [dup] folds the two duplicate-burst streams of bench.py, 64 batches of
   2M lanes each, from a cold state and from a warmed one, at the
   CLI-default sketch parameters: a 64x tile of 32768 random composites
@@ -74,6 +76,12 @@ through the port's CLI on the card, and then drives these paths:
   its shards made reads, and its wall is printed over the torch
   backend's on the same file just after. The shards share one card, so
   no traffic between cards and no concurrency of cards is measured.
+  Then the process mesh (parallel/process_mesh.py): 4 worker processes
+  on cuda:0 (logical cards), its pool's start-up printed, the isolate
+  through sketch_stream (.sk == native's; the workers' summed launches
+  held to their summed tiers; its wall over the torch backend's just
+  after), and a worker killed mid-stream, which must make the parent
+  raise within 60 s and leave no process and no shared memory.
 
 Each kernel's launch counter is zeroed just before each run and read just
 after, and must equal the steps that by the tier switch's rules launch
@@ -92,6 +100,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -911,12 +920,9 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    from finch_tpu_torch.ops import dedup, extract
+    from finch_tpu_torch.parallel import process_mesh
 
-    return {"extract": extract.extract_candidates.launches,
-            "extract_weighted": extract.extract_candidates.launches_weighted,
-            "dedup": dedup.dedup_candidates.launches,
-            "dedup_slab": dedup.dedup_slab_candidates.launches}
+    return process_mesh.read_launches()
 
 
 TIERS = ("A", "D2", "B", "D", "C")
@@ -1016,6 +1022,19 @@ def phase_main_path(tmp: str, seed: int) -> dict:
         raise AssertionError(f"expected {params.expected_size()} hashes, "
                              f"got {len(sk.hashes)}")
 
+    # the parse alone: the floor of every engine, the mesh's included
+    from finch_tpu_torch.tools.mesh_cards import parse_alone
+
+    parses = [parse_alone(fq, k) for _ in range(3)]
+    if any(p["kmers"] != kmers for p in parses):
+        raise AssertionError(f"[main] parse alone: {parses} != {kmers}")
+    parse_s = sorted(p["s"] for p in parses)[1]
+    log(f"[main] parse alone ({parses[0]['reader']}, {os.cpu_count()} "
+        f"cores, filled in place into two reused buffers, no engine): "
+        f"{kmers} k-mers in {parses[0]['batches']} batches; "
+        f"{[round(p['s'], 4) for p in parses]} s, median {parse_s:.4f} s "
+        f"({kmers / parse_s:.4g} k-mers/s, "
+        f"{os.path.getsize(fq) / parse_s / 1e6:.1f} MB/s)")
     out = {"native_s": native_s, "kmers": kmers, "launches": {},
            "fastq": fq, "ref": ref}
     for backend in ("auto", "torch"):
@@ -1891,6 +1910,8 @@ MESH_BPD = 1 << 19         # a 2M-lane CLI batch in 4 shards of 512k lanes
 MESH_SCALED_READS = 100_000
 MESH_PL_READS = 200_000    # the process-local (NCCL) run's reads
 MESH_DUP_BATCHES = 16
+MESH_WORKERS = 4           # the process mesh's workers, all on cuda:0
+MESH_KILL_BOUND_S = 60.0   # a killed worker must surface within this
 # the dup64 warm fold: 4 x 262,144 distinct k-mers below 3.15% of the hash
 # space, so that each shard's 200k-entry state reaches about 2.4%, the
 # threshold of [dup]'s steady state
@@ -2014,6 +2035,8 @@ def phase_mesh(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
     shards, with gloo for NCCL."""
     with record_widths() as widths:
         out = _mesh_runs(fq, ref_sk, tmp, seed, dist, smi, device)
+    for n, ws in out.pop("process_widths").items():
+        widths[n].update(ws)  # the workers' own steps, which no spy sees
     for n, ws in widths.items():
         if ws - HELD_WIDTHS[n]:
             raise AssertionError(
@@ -2124,6 +2147,10 @@ def _mesh_runs(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
     torch_s = time.perf_counter() - t
     mlog(f"isolate_30x wall: mesh {secs:.3f} s over --backend torch "
         f"{torch_s:.3f} s = {secs / torch_s:.4f}x on {smi}")
+
+    launches, out["process_widths"] = _process_mesh_runs(
+        fq, ref_sk, params, filters, card0, device, smi, mlog, sync)
+    out["launches"]["mesh_process"] = launches
 
     # the user's entry point: `finch sketch --backend mesh`, every card
     o = os.path.join(tmp, "mesh_cli")
@@ -2282,6 +2309,106 @@ def _mesh_runs(fq: str, ref_sk: bytes, tmp: str, seed: int, dist: dict,
         f"{len(rs)}: {mesh_s:.3f} s, unsharded {flat_s:.3f} s; equal")
     log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def _process_mesh_runs(fq: str, ref_sk: bytes, params, filters, card0,
+                       device: str, smi: str, mlog, sync):
+    """The process mesh (one worker process a card) over MESH_WORKERS
+    logical cards of cuda:0: its pool's start-up, the isolate through
+    sketch_stream (== native's .sk; the workers' summed launches held to
+    their summed tiers; its wall over the torch backend's just after),
+    then a worker killed mid-stream, which must make the parent raise
+    within MESH_KILL_BOUND_S and leave no process and no shared memory.
+    The workers' launches are their own counters, zero at the stream's
+    open: this process's stay 0. Returns the isolate's summed launches
+    and the lane widths each kernel ran at in the workers."""
+    import numpy as np
+
+    from finch_tpu_torch.core.sketching import sketch_stream
+    from finch_tpu_torch.errors import FinchError
+    from finch_tpu_torch.parallel.process_mesh import (ProcessMeshEngine,
+                                                       get_pool)
+    from finch_tpu_torch.serialization.json_sk import \
+        multisketch_to_json_bytes
+
+    devices = [card0] * MESH_WORKERS
+    batch = 1 << 21
+    t = time.perf_counter()
+    pool = get_pool(devices, batch)
+    startup = pool.wait_ready()
+    phases = [{n: round(v, 3) for n, v in p.items()}
+              for p in pool.startup_phases]
+    mlog(f"process mesh: {MESH_WORKERS} worker processes on {card0} "
+         f"(pids {pool.worker_pids}) started in {startup:.3f} s (spawn to "
+         f"the last worker's ready; {time.perf_counter() - t:.3f} s in "
+         f"this process); each worker's marks, s after the spawn: "
+         f"{phases}")
+    made = []
+    reset_launches()
+    with engine_override(lambda p: made.append(ProcessMeshEngine(
+            p, devices, batch_size=batch)) or made[-1]):
+        t = time.perf_counter()
+        sk = sketch_stream(fq, fq, params, filters, backend="mesh",
+                           device=device)
+        secs = time.perf_counter() - t
+    mine = read_launches()
+    got = multisketch_to_json_bytes([sk])
+    eng = made[0]
+    launches = eng.stats["launches"]
+    mlog(f"process mesh isolate_30x: {sk.num_valid_kmers} k-mers in "
+         f"{secs:.3f} s; {_tier_line(eng.stats)}; worker steps "
+         f"{eng.stats['worker_steps']}; the workers' launches {launches} "
+         f"(this process's {mine}); .sk identical to native: "
+         f"{got == ref_sk}")
+    if got != ref_sk:
+        raise AssertionError("[mesh] process mesh: .sk differs from native")
+    if eng.pool is not pool or any(mine.values()):
+        raise AssertionError(f"[mesh] process mesh: another pool, or "
+                             f"launches in this process {mine}")
+    check_launches("[mesh] process mesh", eng.stats, launches)
+    t = time.perf_counter()
+    sketch_stream(fq, fq, params, filters, backend="torch", device=device)
+    sync()
+    torch_s = time.perf_counter() - t
+    mlog(f"process mesh wall: {secs:.3f} s over --backend torch "
+         f"{torch_s:.3f} s = {secs / torch_s:.4f}x on {smi} (start-up "
+         f"{startup:.3f} s apart); {MESH_WORKERS} processes share one card")
+
+    # a worker killed mid-stream: the parent raises within its bound
+    pids, names = list(pool.worker_pids), pool.shm_names()
+    eng = ProcessMeshEngine(params, devices, batch_size=batch)
+    rng = np.random.default_rng(3)
+    pk = rng.integers(0, 4 ** 21, size=batch, dtype=np.uint64)
+    rc = np.zeros(batch, dtype=np.uint8)
+    for _ in range(3):
+        eng.update(pk, rc)
+    os.kill(pids[1], signal.SIGKILL)
+    t = time.perf_counter()
+    try:
+        for _ in range(4 * MESH_WORKERS):
+            eng.update(pk, rc)
+        eng.finalize_arrays()
+    except FinchError as err:
+        raised = f"{type(err).__name__}: {str(err).splitlines()[0]}"
+    else:
+        raise AssertionError("[mesh] killed worker: the parent went on")
+    secs = time.perf_counter() - t
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    left = [n for n in names
+            if os.path.exists(os.path.join("/dev/shm", n.lstrip("/")))]
+    mlog(f"process mesh, worker {pids[1]} killed after 3 batches: raised "
+         f"in {secs:.3f} s ({raised}); processes left {alive}, shared "
+         f"memory left {left}")
+    if secs > MESH_KILL_BOUND_S or alive or left or not pool.closed:
+        raise AssertionError("[mesh] killed worker: raised too late or "
+                             "left a process or shared memory behind")
+    return launches, made[0].stats["widths"]
 
 
 def profile_torch_run(fn) -> None:

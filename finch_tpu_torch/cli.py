@@ -12,8 +12,8 @@ orchestration mirror the reference CLI:
 `--backend` takes auto|torch|mesh|native|numpy and `--device` (default
 cuda) picks the card or the CPU for the device backends; without a card
 they raise unless `--device cpu` is given. `mesh` shards the stream over
-every card (one CPU shard with `--device cpu`); auto takes it at k <= 31
-when more than one card is present. `dist` runs its integer statistics
+every card, one worker process a card (one CPU shard with `--device
+cpu`); auto stays on one card. `dist` runs its integer statistics
 on that device (parallel/: the Gram engine for --pairwise, the tiles for
 query-vs-DB) unless `--backend numpy` asks for the serial host loop.
 
@@ -92,8 +92,8 @@ def _add_sketch_options(p):
                    choices=["auto", "torch", "mesh", "native", "numpy"],
                    help="Compute backend (auto: the host fold for small "
                         "inputs, migrating to the device for large ones at "
-                        "k <= 63; mesh over every card when several are "
-                        "present, at k <= 31)")
+                        "k <= 63, on one card; mesh: every card, one "
+                        "worker process a card, at k <= 31)")
     p.add_argument("--device", dest="device", default="cuda",
                    help="torch device of the device backends: cuda "
                         "(default) or cpu")

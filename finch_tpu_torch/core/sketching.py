@@ -117,6 +117,8 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
     if engine_out is not None:
         engine_out.append(engine)
     canonical = sketch_params.sketch_type != "none"
+    if hasattr(engine, "next_slot"):
+        batch_size = engine.batch_size  # the reader fills the engine's slots
     reader = _choose_reader(
         source, sketch_params.k, canonical, batch_size,
         parser_threads=parser_threads,
@@ -145,9 +147,44 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
                 fut = pool.submit(timed_next, it)
                 yield batch
 
-    for packed, rc in batches():
-        with engine_m.timed(len(packed)):
-            engine.update(packed, rc)
+    def slot_batches():
+        """(slot, n): each batch parsed straight into one of the engine's
+        slots (ProcessMeshEngine), with the same one-batch prefetch."""
+        import concurrent.futures as cf
+
+        def fill_next():
+            slot = engine.next_slot()
+            try:
+                parse_m.start()
+                n = reader.fill(slot.lo, slot.hi)
+                parse_m.stop(n)
+            except BaseException:
+                engine.submit(slot, 0)
+                raise
+            return slot, n
+
+        with cf.ThreadPoolExecutor(max_workers=1) as pool:
+            fut = pool.submit(fill_next)
+            while True:
+                slot, n = fut.result()
+                if n == 0:
+                    engine.submit(slot, 0)
+                    return
+                fut = pool.submit(fill_next)
+                yield slot, n
+
+    if hasattr(engine, "next_slot"):
+        try:
+            for slot, n in slot_batches():
+                with engine_m.timed(n):
+                    engine.submit(slot, n)
+        except BaseException:
+            engine.close()
+            raise
+    else:
+        for packed, rc in batches():
+            with engine_m.timed(len(packed)):
+                engine.update(packed, rc)
 
     # FASTA disables filtering unless explicitly requested (lib.rs:71-76)
     if filter_params.filter_on is None:

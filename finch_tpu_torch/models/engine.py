@@ -27,9 +27,11 @@ card and keeps xwide k on the host.
 
 Device rule: the device engines run on "cuda" unless the caller asks for
 "cpu"; without a card they raise (``resolve_device``) and never fall back
-to the CPU silently, at any k. The mesh backend (make_engine "mesh", and
-"auto" at k <= 31 when more than one card is present) shards the stream
-over every card (parallel/sharded_sketch.py).
+to the CPU silently, at any k. The mesh backend (make_engine "mesh")
+shards the stream over every card: one worker process a card
+(parallel/process_mesh.py), or the lockstep over one card's logical
+shards (parallel/sharded_sketch.py). "auto" stays on one card, also
+where several are present.
 """
 
 from __future__ import annotations
@@ -375,15 +377,20 @@ class TorchEngine:
             self.capacity = new_cap
 
     def _step(self, chunk_pk, chunk_rc) -> None:
-        bk = self._bottomk
         if chunk_pk.dtype != np.uint32:
             chunk_pk, chunk_rc = composite_planes(chunk_pk, chunk_rc)
-        lo_d = self._pad(chunk_pk)
-        hi_d = self._pad(chunk_rc)
+        self.step_planes(self._pad(chunk_pk), self._pad(chunk_rc),
+                         len(chunk_pk))
+
+    def step_planes(self, lo_d: torch.Tensor, hi_d: torch.Tensor,
+                    nvalid: int) -> None:
+        """One step (k <= 31) on composite planes already on the device:
+        int32 tensors of bucket_pow2(nvalid) lanes, zero past nvalid."""
+        bk = self._bottomk
         is_scaled = self.params.sketch_type == "scaled"
         while True:
             new_state, below = bk.sketch_step(
-                self.state, lo_d, hi_d, len(chunk_pk), self._mh,
+                self.state, lo_d, hi_d, nvalid, self._mh,
                 k=self.params.k, seed=self.params.hash_seed,
                 has_max_hash=is_scaled, use_kernel=True, stats=self.stats)
             if not is_scaled:
@@ -501,14 +508,20 @@ class HybridEngine:
 
 
 def _mesh_engine(params: SketchParams, batch_size: int, device="cuda"):
-    """Data-parallel sketching over every card (one CPU shard with
-    device="cpu"; parallel/sharded_sketch.py); bit-identical to the host
-    engines. A shard is at least 16384 lanes wide, so for up to 16 cards
-    a full default batch gives shards of >= 131072 lanes, which run the
-    kernels."""
+    """Data-parallel sketching over every card, bit-identical to the host
+    engines. Over several cards, one worker process a card, each folding
+    whole batches (parallel/process_mesh.py); on one card or the CPU (one
+    CPU shard with device="cpu"), the lockstep mesh
+    (parallel/sharded_sketch.py), whose shards are at least 16384 lanes
+    wide, so for up to 16 shards a full default batch gives shards of >=
+    131072 lanes, which run the kernels."""
     from finch_tpu_torch.parallel import ShardedSketchEngine, make_mesh
 
     mesh = make_mesh(device=device)
+    if mesh.size > 1 and mesh.devices[0].type == "cuda":
+        from finch_tpu_torch.parallel.process_mesh import ProcessMeshEngine
+
+        return ProcessMeshEngine(params, mesh.devices, batch_size=batch_size)
     return ShardedSketchEngine(
         params, mesh,
         batch_size_per_device=max(batch_size // mesh.size, 1 << 14))
@@ -516,8 +529,8 @@ def _mesh_engine(params: SketchParams, batch_size: int, device="cuda"):
 
 def make_engine(params: SketchParams, backend: str = "auto",
                 batch_size: int = 1 << 21, device="cuda"):
-    """backend: "auto" (HybridEngine on one card, the mesh engine over
-    several at k <= 31; the host fold when the caller asked for
+    """backend: "auto" (HybridEngine on the current card, also where
+    several are present; the host fold when the caller asked for
     device="cpu"), "torch", "mesh", "native" or "numpy". The torch
     backend folds k >= 64 on the host (a NumpyEngine), as the JAX
     package does, after the same device check."""
@@ -538,13 +551,12 @@ def make_engine(params: SketchParams, backend: str = "auto",
         return _mesh_engine(params, batch_size, device)
     if backend == "auto":
         if resolve_device(device).type == "cuda":
-            if torch.cuda.device_count() > 1 and params.k <= 31:
-                # several cards: shard the stream over all of them, as the
-                # JAX package does. The mesh is slower than the torch
-                # backend on one card (one host thread issues every
-                # shard's calls) but faster than HybridEngine on one card,
-                # which is what auto would run there (PERF.md)
-                return _mesh_engine(params, batch_size, device)
+            # one card, also where several are present (unlike the JAX
+            # package): in fresh processes, what a `finch sketch` user
+            # waits for, HybridEngine on one card took about half the wall
+            # of either mesh over four cards, whose start-up (a context a
+            # card; the process mesh's workers) outweighs their folding
+            # (PERF.md §6)
             return HybridEngine(params, batch_size=batch_size, device=device)
         return NativeEngine(params)
     raise FinchMessageError(f"unknown backend {backend!r}")

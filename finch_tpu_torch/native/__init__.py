@@ -368,21 +368,18 @@ class KmerReader:
                     break
                 continue
             if self.composite:
-                # ((packed << 1) | is_rc) u32 planes: the fused device
-                # kernel's operand layout, no device-side prep pass
                 a = np.empty(self.batch_size, dtype=np.uint32)
                 b = np.empty(self.batch_size, dtype=np.uint32)
-                r = lib().fn_next_batch_c(
-                    self._h, self.k, 1 if self.canonical else 0,
-                    self.batch_size, a.ctypes.data, b.ctypes.data,
-                    ctypes.byref(n), ctypes.byref(fmt))
-            else:
-                a = np.empty(self.batch_size, dtype=np.uint64)
-                b = np.empty(self.batch_size, dtype=np.uint8)
-                r = lib().fn_next_batch(
-                    self._h, self.k, 1 if self.canonical else 0,
-                    self.batch_size, a.ctypes.data, b.ctypes.data,
-                    ctypes.byref(n), ctypes.byref(fmt))
+                got = self.fill(a, b)
+                if got:
+                    yield a[:got], b[:got]
+                continue
+            a = np.empty(self.batch_size, dtype=np.uint64)
+            b = np.empty(self.batch_size, dtype=np.uint8)
+            r = lib().fn_next_batch(
+                self._h, self.k, 1 if self.canonical else 0,
+                self.batch_size, a.ctypes.data, b.ctypes.data,
+                ctypes.byref(n), ctypes.byref(fmt))
             if r < 0:
                 code = lib().fn_error(self._h)
                 raise NativeError(_ERRORS.get(code, f"parse error {code}"))
@@ -393,6 +390,33 @@ class KmerReader:
                 yield a[: n.value], b[: n.value]
             if r == 0:
                 break
+
+    def fill(self, lo: np.ndarray, hi: np.ndarray) -> int:
+        """Parse the next composite batch ((packed << 1) | is_rc u32
+        planes, the fused device kernel's operand layout) into the
+        caller's arrays, each of at least `batch_size` u32; returns its
+        length, 0 once the stream is done. Batch for batch the k-mers
+        that plain iteration yields, and the same `totals`. The reader
+        must have been opened with composite=True (and k <= 31)."""
+        if not self.composite or self.k > 31:
+            raise NativeError("fill needs a composite reader of k <= 31")
+        _check_planes(lo, hi, self.batch_size)
+        n = ctypes.c_uint64(0)
+        fmt = ctypes.c_int(0)
+        while not self._done:
+            r = lib().fn_next_batch_c(
+                self._h, self.k, 1 if self.canonical else 0,
+                self.batch_size, lo.ctypes.data, hi.ctypes.data,
+                ctypes.byref(n), ctypes.byref(fmt))
+            if r < 0:
+                code = lib().fn_error(self._h)
+                raise NativeError(_ERRORS.get(code, f"parse error {code}"))
+            self.format = fmt.value
+            if r == 0:
+                self._done = True
+            if n.value:
+                return n.value
+        return 0
 
     @property
     def totals(self):
@@ -410,6 +434,17 @@ class KmerReader:
 
     def __del__(self):
         self.close()
+
+
+def _check_planes(lo: np.ndarray, hi: np.ndarray, batch_size: int) -> None:
+    """A reader writes up to batch_size lanes through the arrays' pointers:
+    refuse any that could not hold them."""
+    for a in (lo, hi):
+        if (not isinstance(a, np.ndarray) or a.dtype != np.uint32
+                or a.ndim != 1 or not a.flags.c_contiguous
+                or not a.flags.writeable or a.shape[0] < batch_size):
+            raise NativeError(f"fill needs two writable contiguous uint32 "
+                              f"arrays of at least {batch_size} lanes")
 
 
 class XWideReader:
@@ -597,8 +632,6 @@ class StreamingParallelReader:
         self._done = False
 
     def __iter__(self):
-        n = ctypes.c_uint64(0)
-        fmt = ctypes.c_int(0)
         while not self._done:
             if self.composite:
                 a = np.empty(self.batch_size, dtype=np.uint32)
@@ -606,6 +639,16 @@ class StreamingParallelReader:
             else:
                 a = np.empty(self.batch_size, dtype=np.uint64)
                 b = np.empty(self.batch_size, dtype=np.uint8)
+            got = self._next(a, b)
+            if got:
+                yield a[:got], b[:got]
+
+    def _next(self, a: np.ndarray, b: np.ndarray) -> int:
+        """The next non-empty batch into a and b (batch_size lanes each);
+        its length, 0 once the stream is done."""
+        n = ctypes.c_uint64(0)
+        fmt = ctypes.c_int(0)
+        while not self._done:
             r = lib().fn_pnext(
                 self._h, a.ctypes.data, b.ctypes.data,
                 ctypes.byref(n), ctypes.byref(fmt))
@@ -615,9 +658,20 @@ class StreamingParallelReader:
                 raise NativeError(_ERRORS.get(code, f"parse error {code}"))
             if r == 0:
                 self._done = True
-                break
-            if n.value:
-                yield a[: n.value], b[: n.value]
+            elif n.value:
+                return n.value
+        return 0
+
+    def fill(self, lo: np.ndarray, hi: np.ndarray) -> int:
+        """Parse the next composite batch into the caller's u32 arrays,
+        each of at least `batch_size` lanes; returns its length, 0 once
+        the stream is done. As KmerReader.fill; the reader must have been
+        opened with composite=True."""
+        if not self.composite:
+            raise NativeError("fill needs a reader opened with "
+                              "composite=True")
+        _check_planes(lo, hi, self.batch_size)
+        return self._next(lo, hi)
 
     @property
     def totals(self):

@@ -1,4 +1,6 @@
-"""finch_tpu_torch imports neither jax nor anything of finch_tpu."""
+"""finch_tpu_torch imports neither jax nor anything of finch_tpu, and
+importing its modules starts no process (the process mesh's workers start
+at first use)."""
 
 import os
 import subprocess
@@ -7,7 +9,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
-import pkgutil, importlib, sys
+import multiprocessing, pkgutil, importlib, sys
 import finch_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(finch_tpu_torch.__path__,
                                                "finch_tpu_torch.")]
@@ -19,6 +21,7 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert len(names) >= 20, names
 assert not bad, bad
+assert not multiprocessing.active_children(), multiprocessing.active_children()
 """
 
 

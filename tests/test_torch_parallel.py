@@ -278,13 +278,15 @@ def test_mesh_routes(monkeypatch, tmp_path):
                                    os.path.join(HERE, "data", "query.fa")])):
         with pytest.raises(FinchMessageError, match="no CUDA device"):
             call()
-    # auto takes the mesh when several cards are present (k <= 31 only)
+    # auto stays on one card where several are present (in fresh
+    # processes HybridEngine on one card beat both meshes); mesh takes them
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(teng, "_mesh_engine",
                         lambda p, b, d: ("mesh", b // 4))
     monkeypatch.setattr(teng, "HybridEngine", lambda p, **kw: "hybrid")
-    assert teng.make_engine(params) == ("mesh", 1 << 19)
+    assert teng.make_engine(params) == "hybrid"
+    assert teng.make_engine(params, backend="mesh") == ("mesh", 1 << 19)
     assert teng.make_engine(wide) == "hybrid"
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert teng.make_engine(params) == "hybrid"
