@@ -39,6 +39,7 @@ from finch_tpu_torch.serialization import (FINCH_BIN_EXT, FINCH_EXT,
                                            MASH_EXT, open_sketch_file)
 from finch_tpu_torch.serialization.json_sk import (format_f64,
                                                    multisketch_to_json_bytes)
+from finch_tpu_torch.utils.metrics import span
 
 
 class CliError(FinchError):
@@ -768,23 +769,28 @@ def generate_sketch_files(args, file_ext: str) -> None:
         sketches = sketch_files([filename], sketch_params, filters,
                                 backend=args.backend, device=args.device)
         out_filename = filename + file_ext
-        try:
-            out = open(out_filename, "wb")
-        except OSError:
-            raise CliError(f"Could not open {out_filename}")
-        with out:
-            _write_sketches(out, sketches, args)
+        with span("cli.write_sk") as s:
+            try:
+                out = open(out_filename, "wb")
+            except OSError:
+                raise CliError(f"Could not open {out_filename}")
+            with out:
+                s.items = _write_sketches(out, sketches, args)
 
 
-def _write_sketches(writer, sketches, args) -> None:
+def _write_sketches(writer, sketches, args) -> int:
+    """Write the sketches in the format `args` asks for; returns the
+    bytes written."""
     if getattr(args, "binary_format", False):
         from finch_tpu_torch.serialization.finch_bsk import write_finch_file
-        writer.write(write_finch_file(sketches))
+        data = write_finch_file(sketches)
     elif getattr(args, "mash_binary_format", False):
         from finch_tpu_torch.serialization.mash_msh import write_mash_file
-        writer.write(write_mash_file(sketches))
+        data = write_mash_file(sketches)
     else:
-        writer.write(multisketch_to_json_bytes(sketches))
+        data = multisketch_to_json_bytes(sketches)
+    writer.write(data)
+    return len(data)
 
 
 def run(argv=None) -> None:
@@ -808,8 +814,11 @@ def run(argv=None) -> None:
                     else FINCH_EXT)
         if args.output_file or args.std_out:
             sketches = parse_mash_files(args)
-            output_to(lambda w: _write_sketches(w, sketches, args),
-                      args.output_file, file_ext)
+            with span("cli.write_sk") as s:
+                def write(w):
+                    s.items = _write_sketches(w, sketches, args)
+
+                output_to(write, args.output_file, file_ext)
         else:
             generate_sketch_files(args, file_ext)
 

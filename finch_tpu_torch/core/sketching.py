@@ -22,6 +22,8 @@ from finch_tpu_torch.models.engine import (_finalize_arrays,
                                            make_engine, resolve_device)
 from finch_tpu_torch.models.params import FilterParams, SketchParams
 from finch_tpu_torch.native import FORMAT_FASTQ, KmerReader
+from finch_tpu_torch.utils.metrics import (get_meter, metrics_enabled,
+                                           report, span)
 
 def _make_engine(sketch_params: SketchParams, backend: str, batch_size: int,
                  device):
@@ -104,34 +106,48 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
     """Sketch one FASTA/FASTQ(.gz) source (path or bytes). lib.rs:51-94.
 
     engine_out, when given, receives the engine (its `stats` count the
-    device steps per tier)."""
-    from finch_tpu_torch.utils import get_meter, metrics_enabled, report
+    device steps per tier).
 
+    The whole call is the span ``sketch.stream`` (utils/metrics.py), the
+    root of the spans below it on this thread."""
+    with span("sketch.stream") as root:
+        sketch = _sketch_stream(source, name, sketch_params, filters,
+                                backend, batch_size, parser_threads, device,
+                                engine_out)
+        root.items = sketch.num_valid_kmers
+    if metrics_enabled():
+        report()
+    return sketch
+
+
+def _sketch_stream(source, name, sketch_params, filters, backend,
+                   batch_size, parser_threads, device, engine_out) -> Sketch:
     if backend in ("auto", "torch", "mesh"):
         resolve_device(device)
     filter_params = filters.copy()
     if _fused_native_ok(source, sketch_params, backend, device):
         return _sketch_stream_fused(source, name, sketch_params,
                                     filter_params, parser_threads)
-    engine = _make_engine(sketch_params, backend, batch_size, device)
-    if engine_out is not None:
-        engine_out.append(engine)
-    canonical = sketch_params.sketch_type != "none"
-    if hasattr(engine, "next_slot"):
-        batch_size = engine.batch_size  # the reader fills the engine's slots
-    reader = _choose_reader(
-        source, sketch_params.k, canonical, batch_size,
-        parser_threads=parser_threads,
-        composite=getattr(engine, "wants_composite", False))
+    with span("sketch.open"):
+        engine = _make_engine(sketch_params, backend, batch_size, device)
+        if engine_out is not None:
+            engine_out.append(engine)
+        canonical = sketch_params.sketch_type != "none"
+        if hasattr(engine, "next_slot"):
+            batch_size = engine.batch_size  # the reader fills its slots
+        reader = _choose_reader(
+            source, sketch_params.k, canonical, batch_size,
+            parser_threads=parser_threads,
+            composite=getattr(engine, "wants_composite", False))
+    # the parse thread only meters: a profiler records on this thread alone
     parse_m = get_meter("parse_kmers")
-    engine_m = get_meter("engine_kmers")
 
     # one-batch prefetch pipeline: the C++ parser releases the GIL, so the
     # next batch parses while the engine folds the current one
     def timed_next(it):
         parse_m.start()
         batch = next(it, None)
-        parse_m.stop(len(batch[0]) if batch is not None else 0)
+        parse_m.stop(len(batch[1]) if batch is not None else 0)
         return batch
 
     def batches():
@@ -141,7 +157,10 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
         with cf.ThreadPoolExecutor(max_workers=1) as pool:
             fut = pool.submit(timed_next, it)
             while True:
-                batch = fut.result()
+                with span("sketch.parse_wait") as wait:
+                    batch = fut.result()
+                    if batch is not None:
+                        wait.items = len(batch[1])
                 if batch is None:
                     return
                 fut = pool.submit(timed_next, it)
@@ -166,7 +185,9 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
         with cf.ThreadPoolExecutor(max_workers=1) as pool:
             fut = pool.submit(fill_next)
             while True:
-                slot, n = fut.result()
+                with span("sketch.parse_wait") as wait:
+                    slot, n = fut.result()
+                    wait.items = n
                 if n == 0:
                     engine.submit(slot, 0)
                     return
@@ -176,14 +197,14 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
     if hasattr(engine, "next_slot"):
         try:
             for slot, n in slot_batches():
-                with engine_m.timed(n):
+                with span("engine_kmers", n):
                     engine.submit(slot, n)
         except BaseException:
             engine.close()
             raise
     else:
         for packed, rc in batches():
-            with engine_m.timed(len(packed)):
+            with span("engine_kmers", len(rc)):
                 engine.update(packed, rc)
 
     # FASTA disables filtering unless explicitly requested (lib.rs:71-76)
@@ -198,7 +219,7 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
         num_valid_kmers = engine.num_valid_kmers()
     reader.close()
 
-    with get_meter("finalize").timed(1):
+    with span("finalize", 1):
         if hasattr(engine, "finalize_arrays"):
             arrays = engine.finalize_arrays()
             arrays = filter_params.filter_counts_arrays(*arrays)
@@ -209,8 +230,6 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
             filtered_hashes = filter_params.filter_counts(hashes)
             filtered_hashes = sketch_params.process_post_filter(
                 filtered_hashes, name)
-    if metrics_enabled():
-        report()
 
     return Sketch(
         name=name,
@@ -230,11 +249,10 @@ def _sketch_stream_fused(source, name: str, sketch_params: SketchParams,
     per-worker tables under a shared admission threshold; exact merge at
     EOF (finch_native.cpp sketch mode)."""
     from finch_tpu_torch.native import FORMAT_FASTQ as FQ, sketch_pipeline
-    from finch_tpu_torch.utils import get_meter, metrics_enabled, report
 
     scheme = 1 if sketch_params.sketch_type == "scaled" else 0
     max_hash = sketch_params.max_hash() if scheme else 0
-    with get_meter("fused_parse_fold").timed(1):
+    with span("fused_parse_fold", 1):
         arrays, totals, fmt = sketch_pipeline(
             source, sketch_params.k, scheme, sketch_params.hash_seed,
             sketch_params.kmers_to_sketch, max_hash or 0,
@@ -242,13 +260,11 @@ def _sketch_stream_fused(source, name: str, sketch_params: SketchParams,
     seq_length, num_valid_kmers, _ = totals
     if filter_params.filter_on is None:
         filter_params.filter_on = fmt == FQ
-    with get_meter("finalize").timed(1):
+    with span("finalize", 1):
         arrays = _finalize_arrays(sketch_params, *arrays)
         arrays = filter_params.filter_counts_arrays(*arrays)
         arrays = sketch_params.process_post_filter(arrays, name)
         filtered_hashes = kmercounts_from_arrays(sketch_params, *arrays)
-    if metrics_enabled():
-        report()
     return Sketch(
         name=name,
         seq_length=seq_length,

@@ -48,6 +48,7 @@ from finch_tpu_torch.models.params import SketchParams, U32_MAX, U64_MAX
 from finch_tpu_torch.native import (murmur3_batch, murmur3_packed,
                                     murmur3_packed_w, unpack_kmers,
                                     unpack_kmers_w)
+from finch_tpu_torch.utils.metrics import span
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -335,9 +336,11 @@ class TorchEngine:
     def _pad(self, arr: np.ndarray) -> torch.Tensor:
         n = len(arr)
         b = self._bottomk.bucket_pow2(n)
-        out = np.zeros(b, dtype=arr.dtype)
-        out[:n] = arr
-        return u64.from_numpy(out, self.device)
+        with span("engine.upload") as s:
+            out = np.zeros(b, dtype=arr.dtype)
+            out[:n] = arr
+            s.items = out.nbytes
+            return u64.from_numpy(out, self.device)
 
     def update(self, packed, rc: np.ndarray) -> None:
         bs = self.batch_size
@@ -366,8 +369,7 @@ class TorchEngine:
             if not is_scaled:
                 self.state = new_state
                 return
-            below = int(below)
-            self.stats["syncs"] = self.stats.get("syncs", 0) + 1
+            below = self._bottomk._read(below, self.stats)
             if below + self.size <= self.capacity:
                 self.state = new_state
                 return
@@ -389,10 +391,12 @@ class TorchEngine:
         bk = self._bottomk
         is_scaled = self.params.sketch_type == "scaled"
         while True:
-            new_state, below = bk.sketch_step(
-                self.state, lo_d, hi_d, nvalid, self._mh,
-                k=self.params.k, seed=self.params.hash_seed,
-                has_max_hash=is_scaled, use_kernel=True, stats=self.stats)
+            with span("engine.step", lo_d.shape[0]):
+                new_state, below = bk.sketch_step(
+                    self.state, lo_d, hi_d, nvalid, self._mh,
+                    k=self.params.k, seed=self.params.hash_seed,
+                    has_max_hash=is_scaled, use_kernel=True,
+                    stats=self.stats)
             if not is_scaled:
                 self.state = new_state
                 return
@@ -450,30 +454,31 @@ class HybridEngine:
     def _migrate(self) -> None:
         from finch_tpu_torch.ops import bottomk, bottomk_wide
 
-        dev = TorchEngine(self.params, batch_size=self.batch_size,
-                          device=self.device)
-        hh, hc, he, hpk = self._host.state_arrays()
-        n = len(hh)
-        while dev.capacity < n:
-            # a scaled host state may exceed the initial device capacity
-            dev.capacity *= 2
-        if dev.wide:
-            dev.state = bottomk_wide.state_from_numpy(
-                hh, hc, he, *hpk, dev.capacity, self.device)
-        else:
-            arrays = [np.full(dev.capacity, U64_MAX, dtype=np.uint64),
-                      np.zeros(dev.capacity, dtype=np.uint64),
-                      np.zeros(dev.capacity, dtype=np.uint64),
-                      np.zeros(dev.capacity, dtype=np.uint64)]
-            for dst, src in zip(arrays, (hh, hc, he, hpk)):
-                dst[:n] = src
-            arrays += [np.full(bottomk.spill_capacity(dev.capacity),
-                               U64_MAX, dtype=np.uint64),
-                       np.zeros(1, dtype=np.int32),
-                       np.zeros(1, dtype=np.int32)]
-            dev.state = bottomk.state_from_numpy(arrays, self.device)
-        self._dev = dev
-        self._host = None
+        with span("engine.migrate") as s:
+            dev = TorchEngine(self.params, batch_size=self.batch_size,
+                              device=self.device)
+            hh, hc, he, hpk = self._host.state_arrays()
+            n = s.items = len(hh)
+            while dev.capacity < n:
+                # a scaled host state may exceed the initial device capacity
+                dev.capacity *= 2
+            if dev.wide:
+                dev.state = bottomk_wide.state_from_numpy(
+                    hh, hc, he, *hpk, dev.capacity, self.device)
+            else:
+                arrays = [np.full(dev.capacity, U64_MAX, dtype=np.uint64),
+                          np.zeros(dev.capacity, dtype=np.uint64),
+                          np.zeros(dev.capacity, dtype=np.uint64),
+                          np.zeros(dev.capacity, dtype=np.uint64)]
+                for dst, src in zip(arrays, (hh, hc, he, hpk)):
+                    dst[:n] = src
+                arrays += [np.full(bottomk.spill_capacity(dev.capacity),
+                                   U64_MAX, dtype=np.uint64),
+                           np.zeros(1, dtype=np.int32),
+                           np.zeros(1, dtype=np.int32)]
+                dev.state = bottomk.state_from_numpy(arrays, self.device)
+            self._dev = dev
+            self._host = None
 
     @property
     def stats(self) -> dict:
@@ -483,20 +488,20 @@ class HybridEngine:
         if self._dev is not None:
             self._dev.update(packed, rc)
             return
-        if self.params.k > 63:
-            # xwide k has no device step (TorchEngine refuses it)
-            self._host.update(packed, rc)
-            return
-        wide = isinstance(packed, tuple)  # (lo, hi) code words
-        if not wide and packed.dtype == np.uint32:
-            # composite planes: decode for the host fold
-            comp = ((rc.astype(np.uint64) << np.uint64(32))
-                    | packed.astype(np.uint64))
-            self._host.update(comp >> np.uint64(1),
-                              (packed & np.uint32(1)).astype(np.uint8))
-        else:
-            self._host.update(packed, rc)
-        self._seen += len(packed[0] if wide else packed)
+        with span("engine.host_fold", len(rc)):
+            if self.params.k > 63:
+                # xwide k has no device step (TorchEngine refuses it)
+                self._host.update(packed, rc)
+                return
+            if not isinstance(packed, tuple) and packed.dtype == np.uint32:
+                # composite planes: decode for the host fold
+                comp = ((rc.astype(np.uint64) << np.uint64(32))
+                        | packed.astype(np.uint64))
+                self._host.update(comp >> np.uint64(1),
+                                  (packed & np.uint32(1)).astype(np.uint8))
+            else:
+                self._host.update(packed, rc)
+        self._seen += len(rc)
         if self._seen >= self.switch_after:
             self._migrate()
 

@@ -48,6 +48,7 @@ from finch_tpu_torch import u64
 from finch_tpu_torch.errors import FinchMessageError
 from finch_tpu_torch.ops import dedup, extract
 from finch_tpu_torch.ops.murmur3 import hash_packed_kmers
+from finch_tpu_torch.utils.metrics import span
 
 MAX = u64.MAX
 
@@ -251,10 +252,12 @@ class _Carry:
 
 
 def _read(x, stats):
-    """Host read of a device value (one sync)."""
+    """Host read of a device value (one sync): the span ``engine.sync``,
+    whose calls are the `syncs` counted here."""
     if stats is not None:
         stats["syncs"] = stats.get("syncs", 0) + 1
-    return x.tolist()
+    with span("engine.sync"):
+        return x.tolist()
 
 
 def _append_page(carry: _Carry, cand, mh_arg, *, k: int, seed: int,

@@ -1,4 +1,5 @@
 from finch_tpu_torch.utils.metrics import (Meter, get_meter, metrics_enabled,
-                                           report, trace)
+                                           report, span, trace)
 
-__all__ = ["Meter", "get_meter", "metrics_enabled", "report", "trace"]
+__all__ = ["Meter", "get_meter", "metrics_enabled", "report", "span",
+           "trace"]
