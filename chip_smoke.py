@@ -13,10 +13,13 @@ through the port's CLI on the card, and then drives these paths:
 * [main] sketches a simulated bacterial-isolate sequencing run (a 5 Mbp
   random genome, 150 bp reads at 30x coverage, 0.5% substitutions, half
   the reads reverse-complemented: about 1M reads and 130M 21-mers) at the
-  CLI defaults three ways: the auto backend on the card (host fold
-  migrating to the device), the torch backend on the card (a cold start on
-  the device) and the native host fold, an independent implementation.
-  The three .sk byte strings must be identical. The parse alone (the
+  CLI defaults four ways: the native host fold, an independent
+  implementation; the auto backend as on a cold card
+  (switch_point.cold_card(), as a fresh `finch sketch` runs it: the host
+  fold of the first 4M k-mers, then one migration of that state to the
+  card); the torch backend on the card; and auto again, on the now warm
+  card, which must start there from an empty state and fold nothing on
+  the host. The four .sk byte strings must be identical. The parse alone (the
   file through the fill-in-place reader into two reused buffers, no
   engine) is timed three times. Then an A/B of the torch backend against
   the A/B/C-only configuration (sketch_step absorb=False,
@@ -41,17 +44,20 @@ through the port's CLI on the card, and then drives these paths:
   the CLI's `dist -p` over a 128-sketch file against --backend numpy.
   [dist] launches none of the kernels below: the distance path has none.
 * [wide] sketches [main]'s isolate at k = 51 (sourmash's largest standard
-  k; about 100M 51-mers) at the CLI defaults otherwise, three ways: the
-  torch backend on the card (the two-word wide step, ops/bottomk_wide.py),
-  the native host fold and auto (the host fold for the first 4M k-mers,
-  then the same wide step on the card: it must migrate). The three .sk
-  byte strings must be identical; auto's wall is printed over torch's.
-  The first 20,000 reads (about 2M 51-mers, below the switch point) go
-  through auto, which must stay on the host and equal native's bytes;
-  auto and torch are also timed on that file in fresh processes, where
-  torch pays the card's cold start. auto's and a cold TorchEngine's
-  first three batches are timed one by one. One more torch run under the
-  port's profiler hook (utils.trace) gives the card's busy share and each
+  k; about 100M 51-mers) at the CLI defaults otherwise: the torch
+  backend on the card (the two-word wide step, ops/bottomk_wide.py), the
+  native host fold and auto twice, as on a cold card (cold_card(): the
+  host fold of the first 4M k-mers, then one migration of that state) and
+  on the warm card (the same wide step from the first batch). The four
+  .sk byte strings must be identical; auto's walls are printed over
+  torch's. The first 20,000 reads (about 2M 51-mers, below the cold
+  switch point) go through auto, which in this process (a warm card)
+  must move to the card before its first batch, and in fresh processes
+  (a cold card) must stay on the host, each equal to native's bytes;
+  auto and torch are timed on that file in fresh processes, where torch
+  pays the card's cold start. auto's first three batches under the cold
+  rule and a TorchEngine's are timed one by one. One more torch run under
+  the port's profiler hook (utils.trace) gives the card's busy share and each
   wide.<phase> range's device time. Then the first 8 batches of 2M lanes
   fold with TorchEngine on the card and on the CPU, mash and scaled (the
   scaled state grows): the raw states must be bit-equal after every
@@ -988,8 +994,11 @@ def phase_main_path(tmp: str, seed: int) -> dict:
 
     from finch_tpu_torch import cli
     from finch_tpu_torch.core.sketching import sketch_stream
+    from finch_tpu_torch.models.engine import card_is_warm
     from finch_tpu_torch.serialization.json_sk import \
         multisketch_to_json_bytes
+    from finch_tpu_torch.tools.switch_point import cold_card
+    from finch_tpu_torch.utils import get_meter
 
     fq = os.path.join(tmp, "isolate.fastq")
     t0 = time.perf_counter()
@@ -1037,19 +1046,43 @@ def phase_main_path(tmp: str, seed: int) -> dict:
         f"{os.path.getsize(fq) / parse_s / 1e6:.1f} MB/s)")
     out = {"native_s": native_s, "kmers": kmers, "launches": {},
            "fastq": fq, "ref": ref}
-    for backend in ("auto", "torch"):
+    # auto twice: under cold_card(), as a fresh `finch sketch` runs it (the
+    # host fold of the first 4M k-mers, then one migration of that state),
+    # and after torch, on the warm card (on the card from its first batch)
+    spans = ("engine.host_fold", "engine.migrate", "engine.warm_start")
+    for name, backend in (("auto_cold", "auto"), ("torch", "torch"),
+                          ("auto", "auto")):
+        if name == "auto" and not card_is_warm(torch.device("cuda")):
+            raise AssertionError("[main] the card is not warm after torch")
+        before = {n: (get_meter(n).calls, get_meter(n).items) for n in spans}
         reset_launches()
-        got, _, secs, stats = run(backend, "cuda")
+        with cold_card() if name == "auto_cold" else contextlib.nullcontext():
+            got, _, secs, stats = run(backend, "cuda")
         launches = read_launches()
+        opened = {n: (get_meter(n).calls - before[n][0],
+                      get_meter(n).items - before[n][1]) for n in spans}
         if got != ref:
-            raise AssertionError(f"{backend} sketch differs from native")
-        check_launches(f"[main] {backend}", stats, launches)
-        log(f"[main] {backend} on cuda: {kmers} k-mers in {secs:.2f} s "
+            raise AssertionError(f"{name} sketch differs from native")
+        if name == "auto_cold" and (
+                opened["engine.host_fold"][0] < 1
+                or opened["engine.warm_start"][0]
+                or opened["engine.migrate"][0] != 1
+                or opened["engine.migrate"][1] < 1):
+            raise AssertionError(f"[main] auto on a cold card did not fold on "
+                                 f"the host and migrate its state: {opened}")
+        if name == "auto" and (opened["engine.host_fold"][0]
+                               or opened["engine.warm_start"][0] != 1
+                               or opened["engine.migrate"] != (1, 0)):
+            raise AssertionError(f"[main] auto on the warm card did not start "
+                                 f"on it from an empty state: {opened}")
+        check_launches(f"[main] {name}", stats, launches)
+        log(f"[main] {name} on cuda: {kmers} k-mers in {secs:.2f} s "
             f"({kmers / secs:.4g} k-mers/s); {_tier_line(stats)}; other "
             f"steps {[t for t in ('two_stage', 'small') if t in stats]}; "
-            f"launches {launches}; .sk identical to native")
-        out[backend] = {"s": secs, "stats": stats}
-        out["launches"][backend] = launches
+            f"launches {launches}; spans (calls, items) {opened}; .sk "
+            f"identical to native")
+        out[name] = {"s": secs, "stats": stats, "spans": opened}
+        out["launches"][name] = launches
     # A/B on the same card: the torch backend in the default configuration
     # and in the A/B/C-only one, in turns
     ab = {"default": [], "abc": []}
@@ -1657,7 +1690,7 @@ def dist_full_matrix(H, sks, G) -> dict:
 WIDE_K = 51              # sourmash's standard k: 21, 31 and 51
 XWIDE_K = 101
 XWIDE_READS = 20_000
-WIDE_SMALL_READS = 20_000  # about 2M 51-mers: auto stays on the host
+WIDE_SMALL_READS = 20_000  # about 2M 51-mers: cold auto stays on the host
 WIDE_HOLD_BATCHES = 8    # 2M-lane batches folded on the card and the CPU
 WIDE_PHASES = ("hash", "select", "batch_sort", "batch_runs", "merge_sort",
                "merge_runs")
@@ -1725,7 +1758,9 @@ def phase_wide(fq: str, tmp: str) -> dict:
     from finch_tpu_torch.native import KmerReader
     from finch_tpu_torch.serialization.json_sk import \
         multisketch_to_json_bytes
-    from finch_tpu_torch.tools.switch_point import cold_wall, fastq_head
+    from finch_tpu_torch.tools.switch_point import (cold_card, cold_wall,
+                                                    fastq_head)
+    from finch_tpu_torch.utils import get_meter
 
     def cli_params(path: str, k: int, extra=()):
         args = cli.build_cli().parse_args(
@@ -1756,45 +1791,70 @@ def phase_wide(fq: str, tmp: str) -> dict:
     out["native"] = {"s": secs}
     log(f"[wide] k={WIDE_K} native host fold: {kmers} k-mers in {secs:.2f} "
         f"s ({kmers / secs:.4g} k-mers/s)")
-    # torch, auto, auto, torch: each backend's wall is the mean of its two
-    for backend in ("torch", "auto", "auto", "torch"):
-        got, _, secs, stats, engines = run(fq, params, filters, backend)
+    # torch, auto as on a cold card (cold_card(): the host fold of the
+    # first 4M k-mers, then one migration of that state), auto on the warm
+    # card (from its first batch), torch; torch's wall is the mean of two
+    spans = ("engine.host_fold", "engine.migrate", "engine.warm_start")
+    for name in ("torch", "auto_cold", "auto", "torch"):
+        backend = name.split("_")[0]
+        before = {n: (get_meter(n).calls, get_meter(n).items) for n in spans}
+        with cold_card() if name == "auto_cold" else contextlib.nullcontext():
+            got, _, secs, stats, engines = run(fq, params, filters, backend)
+        opened = {n: (get_meter(n).calls - before[n][0],
+                      get_meter(n).items - before[n][1]) for n in spans}
         if got != ref:
-            raise AssertionError(f"[wide] {backend} sketch differs from "
-                                 "native")
-        if backend == "torch" and (stats.get("wide", 0) < 1
-                                   or stats.get("syncs", 0)):
+            raise AssertionError(f"[wide] {name} sketch differs from native")
+        if name == "torch" and (stats.get("wide", 0) < 1
+                                or stats.get("syncs", 0)):
             raise AssertionError(f"[wide] torch took no wide step or "
                                  f"synced on a mash run: {stats}")
         if backend == "auto" and (engines[0]._dev is None
                                   or stats.get("wide", 0) < 1):
-            raise AssertionError(f"[wide] auto did not migrate to the "
-                                 f"card: {stats}")
-        o = out.setdefault(backend, {"runs_s": [], "stats": stats})
+            raise AssertionError(f"[wide] {name} did not reach the card: "
+                                 f"{stats}")
+        if name == "auto_cold" and (
+                opened["engine.host_fold"][0] < 1
+                or opened["engine.warm_start"][0]
+                or opened["engine.migrate"][0] != 1
+                or opened["engine.migrate"][1] < 1):
+            raise AssertionError(f"[wide] auto on a cold card did not fold "
+                                 f"on the host and migrate its state: "
+                                 f"{opened}")
+        if name == "auto" and (opened["engine.host_fold"][0]
+                               or opened["engine.warm_start"][0] != 1
+                               or opened["engine.migrate"] != (1, 0)):
+            raise AssertionError(f"[wide] auto on the warm card did not "
+                                 f"start on it empty: {opened}")
+        o = out.setdefault(name, {"runs_s": [], "stats": stats})
         o["runs_s"].append(secs)
-        log(f"[wide] k={WIDE_K} {backend} on cuda: {kmers} k-mers in "
+        log(f"[wide] k={WIDE_K} {name} on cuda: {kmers} k-mers in "
             f"{secs:.2f} s ({kmers / secs:.4g} k-mers/s); wide steps "
-            f"{stats.get('wide', 0)}, host syncs {stats.get('syncs', 0)}; "
-            f".sk identical to native")
-    for o in (out["torch"], out["auto"]):
+            f"{stats.get('wide', 0)}, host syncs {stats.get('syncs', 0)}"
+            + (f"; spans (calls, items) {opened}" if backend == "auto"
+               else "") + "; .sk identical to native")
+    for o in (out["torch"], out["auto_cold"], out["auto"]):
         o["s"] = sum(o["runs_s"]) / len(o["runs_s"])
-    log(f"[wide] k={WIDE_K} auto {out['auto']['s']:.3f} s / torch "
-        f"{out['torch']['s']:.3f} s = "
-        f"{out['auto']['s'] / out['torch']['s']:.3f} (means of 2 runs; "
-        f"native {out['native']['s']:.3f} s)")
+    log(f"[wide] k={WIDE_K} auto cold {out['auto_cold']['s']:.3f} s, warm "
+        f"{out['auto']['s']:.3f} s / torch {out['torch']['s']:.3f} s (the "
+        f"mean of 2 runs) = {out['auto_cold']['s'] / out['torch']['s']:.3f}"
+        f", {out['auto']['s'] / out['torch']['s']:.3f} (native "
+        f"{out['native']['s']:.3f} s)")
 
-    # a small file, below the switch point: auto stays on the host; then
-    # auto and torch each in two fresh processes (auto, torch, torch,
-    # auto), where torch's wall holds the card's cold start
+    # a small file, below the cold switch point: on this warm card auto
+    # moves to it before the first batch; then auto and torch each in two
+    # fresh processes (auto, torch, torch, auto), where auto stays on the
+    # host and torch's wall holds the card's cold start
     small = fastq_head(fq, os.path.join(tmp, "isolate_small.fastq"),
                        WIDE_SMALL_READS)
     # unfiltered: at 0.6x of the genome, the error filter leaves too few
     sparams, sfilters = cli_params(small, WIDE_K, ["--no-filter"])
     sref, ssk, s_native, _, _ = run(small, sparams, sfilters, "native")
+    folds = get_meter("engine.host_fold").calls
     sgot, _, s_auto, sstats, engines = run(small, sparams, sfilters, "auto")
-    if sgot != sref or engines[0]._dev is not None or sstats:
-        raise AssertionError("[wide] auto on the small file left the host "
-                             "or differs from native")
+    if (sgot != sref or engines[0]._dev is None or not sstats.get("wide")
+            or get_meter("engine.host_fold").calls != folds):
+        raise AssertionError("[wide] auto on the small file did not start "
+                             "on the warm card or differs from native")
     cold = {"auto": [], "torch": []}
     for backend in ("auto", "torch", "torch", "auto"):
         row = cold_wall(small, WIDE_K, backend, ["--no-filter"])
@@ -1808,10 +1868,11 @@ def phase_wide(fq: str, tmp: str) -> dict:
     out["small"] = {"kmers": ssk.num_valid_kmers, "native_s": s_native,
                     "auto_s": s_auto, "cold_s": cold}
     log(f"[wide] k={WIDE_K} small file ({WIDE_SMALL_READS} reads, "
-        f"{ssk.num_valid_kmers} k-mers): auto stayed on the host, == native "
-        f"({s_auto:.3f} s in process, native {s_native:.3f} s); fresh "
-        f"processes: auto {cold['auto'][0]:.3f} {cold['auto'][1]:.3f} s, "
-        f"torch {cold['torch'][0]:.3f} {cold['torch'][1]:.3f} s")
+        f"{ssk.num_valid_kmers} k-mers): auto started on the warm card, == "
+        f"native ({s_auto:.3f} s in process, native {s_native:.3f} s); "
+        f"fresh processes, auto on the host: auto {cold['auto'][0]:.3f} "
+        f"{cold['auto'][1]:.3f} s, torch {cold['torch'][0]:.3f} "
+        f"{cold['torch'][1]:.3f} s")
     launches = read_launches()
     if any(launches.values()):
         raise AssertionError(f"[wide] the wide path launched {launches}")
@@ -1841,8 +1902,9 @@ def phase_wide(fq: str, tmp: str) -> dict:
         batches.append((packed, rc))
         if len(batches) == WIDE_HOLD_BATCHES:
             break
-    # where auto's time goes: its first batches one by one (the host fold,
-    # the fold and the migration, a card step) beside a cold TorchEngine's
+    # where auto's time goes under the cold rule: its first batches one by
+    # one (the host fold, the fold and the migration, a card step) beside
+    # a TorchEngine's
     per_batch = {}
     for name, eng in (("auto", HybridEngine(params, device="cuda")),
                       ("torch", TorchEngine(params, device="cuda"))):
@@ -1850,16 +1912,18 @@ def phase_wide(fq: str, tmp: str) -> dict:
         for packed, rc in batches[:3]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            eng.update(packed, rc)
+            with cold_card():
+                eng.update(packed, rc)
             torch.cuda.synchronize()
             per_batch[name].append(time.perf_counter() - t0)
         if name == "auto" and (eng._dev is None or eng.stats != {"wide": 1}):
             raise AssertionError(f"[wide] auto did not migrate after two "
                                  f"batches: {eng.stats}")
     out["per_batch_s"] = per_batch
-    log("[wide] first 3 batches of 2M lanes, s: auto (host, host + "
-        "migration, card) " + " ".join(f"{x:.4f}" for x in per_batch["auto"])
-        + "; torch " + " ".join(f"{x:.4f}" for x in per_batch["torch"]))
+    log("[wide] first 3 batches of 2M lanes, s: auto (cold rule: host, "
+        "host + migration, card) "
+        + " ".join(f"{x:.4f}" for x in per_batch["auto"]) + "; torch "
+        + " ".join(f"{x:.4f}" for x in per_batch["torch"]))
 
     scaled = SketchParams.scaled(kmers_to_sketch=1000, scale=0.001,
                                  kmer_length=WIDE_K)
@@ -2492,12 +2556,12 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
-    # launches: the extract's on the main path (the auto backend, the
-    # `finch sketch` a user calls), the other kernels' on the
-    # duplicate-burst path ([dup], both streams, default configuration);
-    # every path's own count, each zeroed just before its run, beside it,
-    # the mesh paths' ([mesh] isolate, CLI, scaled, dup64 steady and
-    # process-local) included
+    # launches: the extract's on the main path (the auto backend on a cold
+    # card, the `finch sketch` of one file a user calls), the other
+    # kernels' on the duplicate-burst path ([dup], both streams, default
+    # configuration); every path's own count, each zeroed just before its
+    # run, beside it, the mesh paths' ([mesh] isolate, CLI, scaled, dup64
+    # steady and process-local) included
     by_path = {**main_path["launches"], **dup["launches"],
                **mesh["launches"]}
     dup_total = {n: sum(dup["launches"][s][n] for s in dup["launches"])
@@ -2510,8 +2574,8 @@ def main(argv=None) -> int:
                 "dedup_slab": "finch_tpu/ops/pallas_extract.py:772"}
     entries = []
     for n in KERNELS:
-        launches = (main_path["launches"]["auto"][n] if n == "extract"
-                    else dup_total[n])
+        launches = (main_path["launches"]["auto_cold"][n]
+                    if n == "extract" else dup_total[n])
         if launches < 1:
             raise AssertionError(f"{n} launched no time on its path")
         row = rows[n]

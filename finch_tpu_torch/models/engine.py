@@ -8,7 +8,11 @@ bit-identical backends:
                  ops/bottomk.py, whose main path runs the hand-written
                  extract kernel (ops/extract.py) on the card.
 * HybridEngine — starts on the host NativeEngine and migrates to a
-                 TorchEngine once the stream is large.
+                 TorchEngine once the stream is large: after 4M k-mers
+                 on a card this process has not yet stepped on (its cold
+                 start outweighs a host fold that long), before the batch
+                 that reaches WARM_SWITCH_AFTER on one it has, for a
+                 stream open alone in the process.
 * NativeEngine / NumpyEngine — host paths (the C++ fold, and NumPy over
                  the C++ murmur), kept as explicit user choices and as
                  independent oracles.
@@ -25,6 +29,11 @@ TorchEngine folds wide k on the card (ops/bottomk_wide.py) and xwide k on
 the host, as the JAX package does; HybridEngine migrates k <= 63 to the
 card and keeps xwide k on the host.
 
+Warm cards: the CUDA context, the kernels' libraries (ops/cuda_lib.py)
+and the lazily loaded kernel modules are paid once a process. A
+TorchEngine step that returns on a card records the card as warm for the
+rest of the process (``card_is_warm``); a CPU TorchEngine records nothing.
+
 Device rule: the device engines run on "cuda" unless the caller asks for
 "cpu"; without a card they raise (``resolve_device``) and never fall back
 to the CPU silently, at any k. The mesh backend (make_engine "mesh")
@@ -36,6 +45,8 @@ where several are present.
 
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -286,6 +297,60 @@ class NativeEngine:
         return _finalize_arrays(self.params, *self.state_arrays())
 
 
+# Auto's two switch points (HybridEngine), in k-mers. On a cold card,
+# the first use of the card in this process, the host folds the first
+# COLD_SWITCH_AFTER k-mers: a fresh process's card start-up costs more
+# than that fold (fresh-process walls, tools/switch_point.py; PERF.md
+# §6). On a warm card the host folds only a stream that stays
+# below WARM_SWITCH_AFTER[k > 31]: the smallest of the isolate's heads
+# on which torch beat the host fold in one warm process on an H100
+# (tools/switch_point.py --warm; PERF.md §6): 2,000 reads at
+# k = 21 (0.975 of the host fold's wall; 1,000 reads, 130,000 k-mers,
+# took 1.71 of it), 1,000 reads at k = 51, whose host fold is NumPy's
+# (0.59; 500 reads took 1.17). The warm rule holds only for a stream that
+# runs alone: in one warm process, 8 genome streams side by side in
+# sketch_files' pool took 1.06-1.42 s each on the warm card against
+# 0.67-1.00 s under the cold rule, whose host folds run in parallel on
+# the host's cores (slower in 8 of 8 rounds); one after another they took
+# 0.71-0.81 s on the warm card against 2.83-3.25 s (PERF.md §6).
+COLD_SWITCH_AFTER = 4 << 20
+WARM_SWITCH_AFTER = {False: 260_000, True: 100_000}
+
+# HybridEngine streams open in this process, from construction to
+# finalize (or to the engine's collection, for a stream that raised)
+_open_streams = 0
+_streams_lock = threading.Lock()
+
+
+def _stream_closed() -> None:
+    global _open_streams
+    with _streams_lock:
+        _open_streams -= 1
+
+# CUDA device indices on which a TorchEngine step has returned in this
+# process; it only grows, and set.add and `in` are each atomic, so
+# sketch_files' threads need no lock around it
+_warm_cards: set = set()
+
+
+def _card_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def mark_card_warm(dev: torch.device) -> None:
+    """Record that a TorchEngine step has returned on `dev`: its context,
+    kernel libraries and modules are loaded. No-op off CUDA."""
+    if dev.type == "cuda":
+        _warm_cards.add(_card_index(dev))
+
+
+def card_is_warm(dev: torch.device) -> bool:
+    """Whether a TorchEngine step has returned on this CUDA device in this
+    process (never for the CPU). Touches no card while none is warm."""
+    return (dev.type == "cuda" and bool(_warm_cards)
+            and _card_index(dev) in _warm_cards)
+
+
 class TorchEngine:
     """Device batch sketcher: fixed-capacity state on `device`, one step
     per batch of up to `batch_size` k-mers. For k <= 31 the step is
@@ -366,6 +431,7 @@ class TorchEngine:
                 self.state, plo_d, phi_d, rc_d, len(plo), self._mh,
                 k=self.params.k, seed=self.params.hash_seed,
                 has_max_hash=is_scaled, stats=self.stats)
+            mark_card_warm(self.device)
             if not is_scaled:
                 self.state = new_state
                 return
@@ -397,6 +463,7 @@ class TorchEngine:
                     k=self.params.k, seed=self.params.hash_seed,
                     has_max_hash=is_scaled, use_kernel=True,
                     stats=self.stats)
+            mark_card_warm(self.device)
             if not is_scaled:
                 self.state = new_state
                 return
@@ -428,20 +495,31 @@ class TorchEngine:
 class HybridEngine:
     """Host engine that migrates to the device engine for large streams.
 
-    Small inputs finish on the host; once the stream crosses
-    `switch_after` k-mers, the host state — already the exact sorted
-    bottom-k with counts — seeds a device state (bottomk.state_from_numpy,
-    or bottomk_wide.state_from_numpy for wide k, 32 <= k <= 63) and
-    sketching continues on the card. Bit-identical either way. xwide k
-    (k >= 64) stays on the host fold, as in the JAX package, which has no
-    device path for it. Unlike the JAX package, wide k migrates too: its
-    host fold is the NumPy one (NativeEngine), several times slower than
-    the card's wide step on a large stream, though still faster than a
-    cold card start up to the default switch point (tools/switch_point.py;
-    PERF.md)."""
+    Small inputs finish on the host; large ones move to the card, where
+    the host state, already the exact sorted bottom-k with counts, seeds
+    a device state (bottomk.state_from_numpy, or
+    bottomk_wide.state_from_numpy for wide k, 32 <= k <= 63) and
+    sketching continues. Bit-identical either way. When it moves:
+
+    * a cold card (no TorchEngine step has returned on it in this
+      process): after the batch that takes the stream to `switch_after`
+      k-mers (COLD_SWITCH_AFTER, 4M, by default), since up to there the
+      host fold beat a fresh process's card start-up;
+    * a warm card (``card_is_warm``), for a stream open alone in the
+      process: before the batch that would take the stream to
+      WARM_SWITCH_AFTER k-mers, which the host never folds; a new
+      stream's state is then an empty TorchEngine state. That point is
+      where the card won in one warm process; streams side by side
+      (sketch_files' pool) take the cold rule, since their host folds
+      run in parallel and their card steps do not (PERF.md §6).
+
+    xwide k (k >= 64) stays on the host fold, as in the JAX package,
+    which has no device path for it. Unlike the JAX package, wide k
+    migrates too: its host fold is the NumPy one (NativeEngine), several
+    times slower than the card's wide step on a large stream (PERF.md)."""
 
     def __init__(self, params: SketchParams, batch_size: int = 1 << 21,
-                 switch_after: int = 4 << 20, device="cuda"):
+                 switch_after: int = COLD_SWITCH_AFTER, device="cuda"):
         self.params = params
         self.wants_composite = params.k <= 31
         self.batch_size = batch_size
@@ -450,6 +528,10 @@ class HybridEngine:
         self._host: Optional[NativeEngine] = NativeEngine(params)
         self._dev: Optional[TorchEngine] = None
         self._seen = 0
+        global _open_streams
+        with _streams_lock:
+            _open_streams += 1
+        self._close = weakref.finalize(self, _stream_closed)
 
     def _migrate(self) -> None:
         from finch_tpu_torch.ops import bottomk, bottomk_wide
@@ -462,7 +544,9 @@ class HybridEngine:
             while dev.capacity < n:
                 # a scaled host state may exceed the initial device capacity
                 dev.capacity *= 2
-            if dev.wide:
+            if not n:
+                pass  # nothing folded yet: dev's own empty state is it
+            elif dev.wide:
                 dev.state = bottomk_wide.state_from_numpy(
                     hh, hc, he, *hpk, dev.capacity, self.device)
             else:
@@ -480,11 +564,23 @@ class HybridEngine:
             self._dev = dev
             self._host = None
 
+    def _warm_handoff(self, n: int) -> bool:
+        """Whether to move to the card before folding the next `n`
+        k-mers: k <= 63, they reach the warm switch point, no other
+        stream is open in the process, and the card is warm."""
+        k = self.params.k
+        return (k <= 63
+                and self._seen + n >= WARM_SWITCH_AFTER[k > 31]
+                and _open_streams == 1 and card_is_warm(self.device))
+
     @property
     def stats(self) -> dict:
         return self._dev.stats if self._dev is not None else {}
 
     def update(self, packed, rc: np.ndarray) -> None:
+        if self._dev is None and self._warm_handoff(len(rc)):
+            with span("engine.warm_start", 1):
+                self._migrate()
         if self._dev is not None:
             self._dev.update(packed, rc)
             return
@@ -506,9 +602,11 @@ class HybridEngine:
             self._migrate()
 
     def finalize(self):
+        self._close()
         return (self._host or self._dev).finalize()
 
     def finalize_arrays(self):
+        self._close()
         return (self._host or self._dev).finalize_arrays()
 
 
@@ -561,7 +659,10 @@ def make_engine(params: SketchParams, backend: str = "auto",
             # waits for, HybridEngine on one card took about half the wall
             # of either mesh over four cards, whose start-up (a context a
             # card; the process mesh's workers) outweighs their folding
-            # (PERF.md §6)
+            # (PERF.md §6). It folds on the host up to 4M k-mers while the
+            # card is cold (fresh-process walls), and hands a stream open
+            # alone that reaches WARM_SWITCH_AFTER to a warm card before
+            # folding it (warm-process walls, PERF.md §6)
             return HybridEngine(params, batch_size=batch_size, device=device)
         return NativeEngine(params)
     raise FinchMessageError(f"unknown backend {backend!r}")

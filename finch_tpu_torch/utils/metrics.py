@@ -33,8 +33,10 @@ one sketch_stream call), ``sketch.open`` (engine and reader
 construction), ``sketch.parse_wait`` (k-mers; the engine waiting for the
 parser), ``engine_kmers`` (k-mers; one engine update), ``engine.host_fold``
 (k-mers; HybridEngine's host fold before migration), ``engine.migrate``
-(state entries), ``engine.upload`` (bytes; padding and the host-to-device
-copy of a plane), ``engine.step`` (lanes; one sketch_step),
+(state entries), ``engine.warm_start`` (HybridEngine's move to a warm
+card before its first card batch, around that ``engine.migrate``),
+``engine.upload`` (bytes; padding and the host-to-device copy of a
+plane), ``engine.step`` (lanes; one sketch_step),
 ``engine.sync`` (one host read of a device value), ``finalize`` and
 ``cli.write_sk`` (bytes; the .sk file's open, write and close); on the
 host-bound path, ``fused_parse_fold`` (the fused native parse and fold)

@@ -498,12 +498,17 @@ def test_wide_step_card_equals_cpu(cuda, k, scaled):
         assert engines[0].capacity > cap0
 
 
-def test_hybrid_wide_migrates_on_card(cuda):
-    """HybridEngine at k = 51 (the default switch point, 4M k-mers) folds
-    the first 2M-lane batches on the host, then migrates onto the card's
-    wide step; its sketch equals NumpyEngine's on the same batches."""
+def test_hybrid_wide_migrates_on_card(cuda, monkeypatch):
+    """HybridEngine at k = 51 on a cold card (the warm record cleared for
+    the test: earlier tests stepped on the card) takes the cold switch
+    point, 4M k-mers: it folds the first 2M-lane batches on the host, then
+    migrates onto the card's wide step; its sketch equals NumpyEngine's on
+    the same batches."""
+    from finch_tpu_torch.models import engine
     from finch_tpu_torch.models.engine import HybridEngine, NumpyEngine
     from finch_tpu_torch.models.params import SketchParams
+
+    monkeypatch.setattr(engine, "_warm_cards", set())
 
     params = SketchParams.mash(kmers_to_sketch=1000, final_size=1000,
                                kmer_length=51, no_strict=True)
@@ -516,6 +521,66 @@ def test_hybrid_wide_migrates_on_card(cuda):
     got, want = hyb.finalize_arrays(), host.finalize_arrays()
     for a, b in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
         np.testing.assert_array_equal(a, b)
+
+
+def _isolate_fastq(path, reads=60_000, genome=300_000, seed=4):
+    """`reads` 150 bp reads of a random genome (30x at the defaults),
+    half reverse-complemented, Phred 40: about 7.8M 21-mers in some five
+    parse batches, so that the cold switch point falls before the last,
+    with every k-mer seen many times."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, size=genome, dtype=np.uint8)
+    starts = rng.integers(0, genome - 150, size=reads)
+    seqs = g[starts[:, None] + np.arange(150)]
+    rev = rng.random(reads) < 0.5
+    seqs[rev] = 3 - seqs[rev, ::-1]
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)[seqs]
+    qual = b"I" * 150
+    with open(path, "wb") as f:
+        for i, row in enumerate(bases):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, row.tobytes(), qual))
+    return str(path)
+
+
+def test_auto_second_sketch_starts_on_the_warm_card(cuda, monkeypatch,
+                                                     tmp_path):
+    """In one process, from a cleared warm record: auto's first sketch of
+    a 7.8M-k-mer FASTQ folds on the host to the cold switch point and
+    migrates; its card steps make the card warm, so the second sketch of
+    the same file folds nothing on the host and opens engine.warm_start
+    once. Both .sk byte strings equal native's."""
+    from finch_tpu_torch.core.sketching import sketch_stream
+    from finch_tpu_torch.models import engine
+    from finch_tpu_torch.serialization.json_sk import \
+        multisketch_to_json_bytes
+    from finch_tpu_torch.tools.switch_point import cli_params
+    from finch_tpu_torch.utils import get_meter
+
+    monkeypatch.setattr(engine, "_warm_cards", set())
+    fq = _isolate_fastq(tmp_path / "isolate.fq")
+    params, filters = cli_params(fq, 21)
+    spans = ("engine.host_fold", "engine.warm_start", "engine.migrate")
+
+    def sketch(backend):
+        before = {n: get_meter(n).calls for n in spans}
+        engines = []
+        sk = sketch_stream(fq, fq, params, filters, backend=backend,
+                           device="cuda", engine_out=engines)
+        opened = {n: get_meter(n).calls - before[n] for n in spans}
+        return multisketch_to_json_bytes([sk]), sk, opened, engines
+
+    want, sk, _, _ = sketch("native")
+    assert sk.num_valid_kmers > 4 << 20 and len(sk.hashes) == 1000
+    assert not engine.card_is_warm(cuda)
+    first, _, opened, engines = sketch("auto")
+    assert opened["engine.host_fold"] >= 2 and opened["engine.migrate"] == 1
+    assert opened["engine.warm_start"] == 0 and engines[0]._dev is not None
+    assert engine.card_is_warm(cuda)
+    second, _, opened, engines = sketch("auto")
+    assert opened == {"engine.host_fold": 0, "engine.warm_start": 1,
+                      "engine.migrate": 1}
+    assert engines[0]._dev is not None
+    assert first == second == want
 
 
 # --- the mesh: logical shards on one card ---
