@@ -427,10 +427,11 @@ class TorchEngine:
         rc_d = self._pad(np.asarray(rc, dtype=np.uint8))
         is_scaled = self.params.sketch_type == "scaled"
         while True:
-            new_state, below = bkw.sketch_step(
-                self.state, plo_d, phi_d, rc_d, len(plo), self._mh,
-                k=self.params.k, seed=self.params.hash_seed,
-                has_max_hash=is_scaled, stats=self.stats)
+            with span("engine.step_wide", len(plo)):
+                new_state, below = bkw.sketch_step(
+                    self.state, plo_d, phi_d, rc_d, len(plo), self._mh,
+                    k=self.params.k, seed=self.params.hash_seed,
+                    has_max_hash=is_scaled, stats=self.stats)
             mark_card_warm(self.device)
             if not is_scaled:
                 self.state = new_state

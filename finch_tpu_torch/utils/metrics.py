@@ -36,7 +36,9 @@ parser), ``engine_kmers`` (k-mers; one engine update), ``engine.host_fold``
 (state entries), ``engine.warm_start`` (HybridEngine's move to a warm
 card before its first card batch, around that ``engine.migrate``),
 ``engine.upload`` (bytes; padding and the host-to-device copy of a
-plane), ``engine.step`` (lanes; one sketch_step),
+plane), ``engine.step`` (lanes; one sketch_step, k <= 31),
+``engine.step_wide`` (the batch's k-mers, unpadded; one wide
+sketch_step, 32 <= k <= 63),
 ``engine.sync`` (one host read of a device value), ``finalize`` and
 ``cli.write_sk`` (bytes; the .sk file's open, write and close); on the
 host-bound path, ``fused_parse_fold`` (the fused native parse and fold)

@@ -139,6 +139,34 @@ def test_sync_span_counts_the_engine_syncs(scheme, k):
     assert get_meter("engine.sync").calls - before == syncs
 
 
+@pytest.mark.parametrize("k", [21, 51])
+def test_wide_step_span_only_at_wide_k(k):
+    """A wide sketch opens ``engine.step_wide`` once a wide step, its lanes
+    the k-mers TorchEngine folded; a k = 21 sketch never opens it, and
+    its ``engine.step`` count is one a batch."""
+    names = ("engine.step_wide", "engine.step", "engine_kmers")
+    before = _counts(names)
+    engines = []
+    with _cpu_profile() as prof:
+        sk = _sketch(_params(k=k), engine_out=engines)
+    after = _counts(names)
+    calls = {n: after[n][0] - before[n][0] for n in names}
+    items = {n: after[n][1] - before[n][1] for n in names}
+    ranges = [n for n, _ in _ranges(prof)]
+    if k == 51:
+        assert calls["engine.step_wide"] == engines[0].stats["wide"] \
+            == ranges.count("engine.step_wide") >= 3
+        assert items["engine.step_wide"] == sk.num_valid_kmers \
+            == items["engine_kmers"]
+        assert calls["engine.step"] == 0
+        # the wide phases nest inside the span
+        assert "wide.hash" in ranges
+    else:
+        assert calls["engine.step_wide"] == 0
+        assert "engine.step_wide" not in ranges
+        assert calls["engine.step"] == calls["engine_kmers"] >= 3
+
+
 def test_hybrid_engine_folds_on_host_then_migrates_once(monkeypatch):
     params = _params()
 
