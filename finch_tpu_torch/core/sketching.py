@@ -133,7 +133,9 @@ def _sketch_stream(source, name, sketch_params, filters, backend,
         if engine_out is not None:
             engine_out.append(engine)
         canonical = sketch_params.sketch_type != "none"
-        if hasattr(engine, "next_slot"):
+        # ProcessMeshEngine, and TorchEngine and HybridEngine at k <= 31
+        takes_slots = getattr(engine, "takes_slots", False)
+        if takes_slots:
             batch_size = engine.batch_size  # the reader fills its slots
         reader = _choose_reader(
             source, sketch_params.k, canonical, batch_size,
@@ -168,7 +170,7 @@ def _sketch_stream(source, name, sketch_params, filters, backend,
 
     def slot_batches():
         """(slot, n): each batch parsed straight into one of the engine's
-        slots (ProcessMeshEngine), with the same one-batch prefetch."""
+        slots, with the same one-batch prefetch."""
         import concurrent.futures as cf
 
         def fill_next():
@@ -194,7 +196,7 @@ def _sketch_stream(source, name, sketch_params, filters, backend,
                 fut = pool.submit(fill_next)
                 yield slot, n
 
-    if hasattr(engine, "next_slot"):
+    if takes_slots:
         try:
             for slot, n in slot_batches():
                 with span("engine_kmers", n):

@@ -59,7 +59,7 @@ from finch_tpu_torch.models.params import SketchParams, U32_MAX, U64_MAX
 from finch_tpu_torch.native import (murmur3_batch, murmur3_packed,
                                     murmur3_packed_w, unpack_kmers,
                                     unpack_kmers_w)
-from finch_tpu_torch.utils.metrics import span
+from finch_tpu_torch.utils.metrics import get_meter, span
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -317,7 +317,8 @@ COLD_SWITCH_AFTER = 4 << 20
 WARM_SWITCH_AFTER = {False: 260_000, True: 100_000}
 
 # HybridEngine streams open in this process, from construction to
-# finalize (or to the engine's collection, for a stream that raised)
+# finalize (or to close(), or the engine's collection, for a stream that
+# raised)
 _open_streams = 0
 _streams_lock = threading.Lock()
 
@@ -351,6 +352,50 @@ def card_is_warm(dev: torch.device) -> bool:
             and _card_index(dev) in _warm_cards)
 
 
+# Host slots a slot-fed engine rings: one the parser fills (the one-batch
+# prefetch), one the main thread submits, one whose copy to the card may
+# still be in flight; the process mesh's depth (parallel/process_mesh.py)
+SLOTS = 3
+
+
+class HostSlot:
+    """One batch's composite planes on the host: `planes`, a (2,
+    batch_size) int32 tensor, and `lo`, `hi`, its u32 rows as the arrays
+    a reader's `fill` parses into; `copied`, the CUDA event behind its
+    last copy to the card (None before one)."""
+
+    __slots__ = ("planes", "lo", "hi", "copied")
+
+    def __init__(self, planes: torch.Tensor):
+        self.planes = planes
+        self.lo, self.hi = planes.numpy().view(np.uint32)
+        self.copied = None
+
+
+class SlotRing:
+    """SLOTS host slots of `batch_size` lanes, handed out in turn; in
+    pinned memory when `pinned`, so that a slot's copy to the card is
+    asynchronous. `take` waits (meter ``engine.slot_wait``, one item a
+    slot) until the slot's last copy has finished."""
+
+    def __init__(self, batch_size: int, pinned: bool):
+        self.pinned = pinned
+        host = torch.empty((SLOTS, 2, batch_size), dtype=torch.int32,
+                           pin_memory=pinned)
+        self._slots = [HostSlot(planes) for planes in host]
+        self._next = 0
+
+    def take(self) -> HostSlot:
+        slot = self._slots[self._next]
+        self._next = (self._next + 1) % SLOTS
+        wait = get_meter("engine.slot_wait")
+        wait.start()
+        if slot.copied is not None:
+            slot.copied.synchronize()
+        wait.stop(1)
+        return slot
+
+
 class TorchEngine:
     """Device batch sketcher: fixed-capacity state on `device`, one step
     per batch of up to `batch_size` k-mers. For k <= 31 the step is
@@ -361,8 +406,16 @@ class TorchEngine:
     whose payloads are per-k-mer byte windows: make_engine folds those on
     the host (a NumpyEngine), as the JAX package does.
 
-    `stats` counts the tier each step took (`wide` for wide steps) and the
-    host syncs it made."""
+    At k <= 31 the engine takes slots: `sketch_stream` has the reader
+    parse each batch into a slot of the engine's ring (`next_slot`, on the
+    parse thread; pinned memory on a card) and hands it back with
+    `submit(slot, n)`, which copies the planes to the card asynchronously
+    and zeroes their padding there; `update(packed, rc)` pads on the host
+    and copies for callers that hold arrays, and for wide k.
+
+    `stats` counts the tier each step took (`wide` for wide steps), the
+    host syncs it made and `slot_steps`, the batches stepped from a slot
+    (absent before the first)."""
 
     def __init__(self, params: SketchParams, batch_size: int = 1 << 21,
                  device="cuda"):
@@ -376,6 +429,7 @@ class TorchEngine:
                 f"TorchEngine folds k <= 63, not {params.k}; make_engine "
                 "folds larger k on the host")
         self.wants_composite = params.k <= 31
+        self.takes_slots = params.k <= 31
         self._bottomk = bottomk
         self.wide = params.k > 31
         self.size = params.kmers_to_sketch
@@ -397,6 +451,43 @@ class TorchEngine:
             self.state = bottomk.empty_state(self.capacity,
                                              device=self.device)
         self._mh = self.max_hash if self.max_hash is not None else 0
+        self._ring: Optional[SlotRing] = None
+        self._planes: Optional[torch.Tensor] = None  # the slots' device copy
+
+    def next_slot(self) -> HostSlot:
+        """The slot the stream's next batch goes into (the parse thread),
+        once its last copy to the card has finished."""
+        if self._ring is None:
+            self._ring = SlotRing(self.batch_size, self.device.type == "cuda")
+        return self._ring.take()
+
+    def submit(self, slot: HostSlot, n: int) -> None:
+        """Step on the slot's first n lanes (n == 0 gives the slot back):
+        each plane's copy to the device and the zeroing of its padding
+        there are queued on the step's stream, whose order keeps the one
+        pair of device planes safe to reuse."""
+        if not n:
+            return
+        b = self._bottomk.bucket_pow2(n)
+        if self._planes is None:
+            self._planes = torch.empty(
+                (2, self._bottomk.bucket_pow2(self.batch_size)),
+                dtype=torch.int32, device=self.device)
+        for src, dst in zip(slot.planes, self._planes):
+            with span("engine.upload", 4 * b):
+                dst[:n].copy_(src[:n], non_blocking=True)
+                if n < b:
+                    dst[n:b].zero_()
+        if self.device.type == "cuda":
+            if slot.copied is None:
+                slot.copied = torch.cuda.Event()
+            slot.copied.record(torch.cuda.current_stream(self.device))
+        self.step_planes(self._planes[0, :b], self._planes[1, :b], n)
+        self.stats["slot_steps"] = self.stats.get("slot_steps", 0) + 1
+
+    def close(self) -> None:
+        """Release the slot ring and its device planes."""
+        self._ring = self._planes = None
 
     def _pad(self, arr: np.ndarray) -> torch.Tensor:
         n = len(arr)
@@ -487,9 +578,11 @@ class TorchEngine:
         return tuple(u64.to_numpy(t) for t in state[:4])
 
     def finalize(self):
+        self.close()
         return _finalize(self.params, *self._host_state())
 
     def finalize_arrays(self):
+        self.close()
         return _finalize_arrays(self.params, *self._host_state())
 
 
@@ -517,17 +610,27 @@ class HybridEngine:
     xwide k (k >= 64) stays on the host fold, as in the JAX package,
     which has no device path for it. Unlike the JAX package, wide k
     migrates too: its host fold is the NumPy one (NativeEngine), several
-    times slower than the card's wide step on a large stream (PERF.md)."""
+    times slower than the card's wide step on a large stream (PERF.md).
+
+    At k <= 31 it takes slots as TorchEngine does, from a ring of its own
+    that outlives the migration (the parser may hold a slot across it):
+    the host fold reads a slot's planes, the card steps copy them. The
+    ring is pinned when it is made on a warm card; on a cold one it is
+    plain memory until the stream moves to the card, and a pinned ring
+    replaces it there: pinning before the cold rule's host fold would
+    start the card for nothing."""
 
     def __init__(self, params: SketchParams, batch_size: int = 1 << 21,
                  switch_after: int = COLD_SWITCH_AFTER, device="cuda"):
         self.params = params
         self.wants_composite = params.k <= 31
+        self.takes_slots = params.k <= 31
         self.batch_size = batch_size
         self.switch_after = switch_after
         self.device = resolve_device(device)
         self._host: Optional[NativeEngine] = NativeEngine(params)
         self._dev: Optional[TorchEngine] = None
+        self._ring: Optional[SlotRing] = None
         self._seen = 0
         global _open_streams
         with _streams_lock:
@@ -564,6 +667,14 @@ class HybridEngine:
                 dev.state = bottomk.state_from_numpy(arrays, self.device)
             self._dev = dev
             self._host = None
+            if (self._ring is not None and not self._ring.pinned
+                    and self.device.type == "cuda"):
+                self._ring = self._new_ring()  # pinned from here on
+
+    def _new_ring(self) -> SlotRing:
+        pinned = self.device.type == "cuda" and (
+            self._dev is not None or card_is_warm(self.device))
+        return SlotRing(self.batch_size, pinned)
 
     def _warm_handoff(self, n: int) -> bool:
         """Whether to move to the card before folding the next `n`
@@ -578,13 +689,45 @@ class HybridEngine:
     def stats(self) -> dict:
         return self._dev.stats if self._dev is not None else {}
 
-    def update(self, packed, rc: np.ndarray) -> None:
-        if self._dev is None and self._warm_handoff(len(rc)):
+    def _warm_start(self, n: int) -> None:
+        if self._dev is None and self._warm_handoff(n):
             with span("engine.warm_start", 1):
                 self._migrate()
+
+    def next_slot(self) -> HostSlot:
+        """The slot the stream's next batch goes into (the parse thread)."""
+        if self._ring is None:
+            self._ring = self._new_ring()
+        return self._ring.take()
+
+    def submit(self, slot: HostSlot, n: int) -> None:
+        """Fold the slot's first n lanes: on the host before the move to
+        the card, else a card step (n == 0 gives the slot back)."""
+        if not n:
+            return
+        self._warm_start(n)
+        if self._dev is not None:
+            self._dev.submit(slot, n)
+        else:
+            self._host_fold(slot.lo[:n], slot.hi[:n])
+
+    def close(self) -> None:
+        """End the stream (finalize, or a batch that raised): release the
+        slot ring (and the card engine's), and leave the streams open in
+        the process."""
+        self._close()
+        self._ring = None
+        if self._dev is not None:
+            self._dev.close()
+
+    def update(self, packed, rc: np.ndarray) -> None:
+        self._warm_start(len(rc))
         if self._dev is not None:
             self._dev.update(packed, rc)
-            return
+        else:
+            self._host_fold(packed, rc)
+
+    def _host_fold(self, packed, rc: np.ndarray) -> None:
         with span("engine.host_fold", len(rc)):
             if self.params.k > 63:
                 # xwide k has no device step (TorchEngine refuses it)
@@ -603,11 +746,11 @@ class HybridEngine:
             self._migrate()
 
     def finalize(self):
-        self._close()
+        self.close()
         return (self._host or self._dev).finalize()
 
     def finalize_arrays(self):
-        self._close()
+        self.close()
         return (self._host or self._dev).finalize_arrays()
 
 

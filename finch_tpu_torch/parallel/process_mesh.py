@@ -562,6 +562,7 @@ class ProcessMeshEngine:
         self.pool = get_pool(devices, self.batch_size)
         self.n = self.pool.size
         self.wants_composite = True
+        self.takes_slots = True
         self.stats: dict = {}
         self._i = 0
         self._slot_wait_s = 0.0

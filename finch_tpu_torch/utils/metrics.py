@@ -12,7 +12,9 @@ range, so that the stage sits in the same trace as the card's kernels and
 copies, on its clock. With no profiler a span costs one flag check beyond
 the meter's update. The profiler records only on the thread that started
 it, so the ranges lie on the thread that called ``sketch_stream``; the
-parse thread's ``parse_kmers`` stays a plain meter.
+parse thread's ``parse_kmers`` (k-mers parsed) and ``engine.slot_wait``
+(slots handed out; the parser's wait for a slot's last copy to the card,
+at k <= 31 on TorchEngine and HybridEngine) stay plain meters.
 
 An operator has two uses for them:
 
@@ -35,15 +37,21 @@ parser), ``engine_kmers`` (k-mers; one engine update), ``engine.host_fold``
 (k-mers; HybridEngine's host fold before migration), ``engine.migrate``
 (state entries), ``engine.warm_start`` (HybridEngine's move to a warm
 card before its first card batch, around that ``engine.migrate``),
-``engine.upload`` (bytes; padding and the host-to-device copy of a
-plane), ``engine.step`` (lanes; one sketch_step, k <= 31),
+``engine.upload`` (bytes of the padded plane; one plane's copy to the
+device: on the slot path, k <= 31, queued asynchronously from the
+batch's slot with the padding zeroed on the device; through ``update``,
+wide k and callers that hold arrays, padded on the host and copied),
+``engine.step`` (lanes; one sketch_step, k <= 31),
 ``engine.step_wide`` (the batch's k-mers, unpadded; one wide
 sketch_step, 32 <= k <= 63),
 ``engine.sync`` (one host read of a device value), ``finalize`` and
 ``cli.write_sk`` (bytes; the .sk file's open, write and close); on the
 host-bound path, ``fused_parse_fold`` (the fused native parse and fold)
 and ``finalize``. The device phases of the wide step and of dist run in ``record_function``
-ranges named ``wide.<phase>`` and ``dist.<phase>``.
+ranges named ``wide.<phase>`` and ``dist.<phase>``. Beside them, a
+TorchEngine's ``stats["slot_steps"]`` counts the batches it stepped from
+a slot: at k <= 31 one a ``engine.step`` but the redo of a scaled step
+that grows, and absent (0) at wide k.
 
 Meters are process-local and cheap (two floats + a counter per stage);
 they are best-effort under concurrency — parallel streams sharing a stage

@@ -583,6 +583,84 @@ def test_auto_second_sketch_starts_on_the_warm_card(cuda, monkeypatch,
     assert first == second == want
 
 
+# --- the slot path (k <= 31) ---
+
+def test_slots_are_pinned_and_wait_for_their_copy(cuda, monkeypatch):
+    """TorchEngine's slots are pinned on the card; HybridEngine's are
+    pinned on a warm card, and on a cold one plain until its stream is on
+    the card and pinned after. The ring hands a slot out only once the
+    copy behind its event has finished: here every copy queues behind a
+    10 ms device sleep, so the slots come back before their copies would
+    have ended."""
+    from finch_tpu_torch.models import engine as eng
+    from finch_tpu_torch.models.engine import (SLOTS, HybridEngine,
+                                               SlotRing, TorchEngine)
+    from finch_tpu_torch.models.params import SketchParams
+
+    params = SketchParams.mash(kmers_to_sketch=1000, final_size=1000)
+    assert TorchEngine(params, device=cuda).next_slot().planes.is_pinned()
+    monkeypatch.setattr(eng, "card_is_warm", lambda dev: False)
+    hyb = HybridEngine(params, device=cuda)
+    assert not hyb.next_slot().planes.is_pinned()
+    hyb._migrate()
+    assert hyb.next_slot().planes.is_pinned()
+    hyb.finalize_arrays()
+    monkeypatch.setattr(eng, "card_is_warm", lambda dev: True)
+    hyb = HybridEngine(params, device=cuda)
+    assert hyb.next_slot().planes.is_pinned()
+    hyb.finalize_arrays()
+
+    ring = SlotRing(1 << 21, pinned=True)
+    dst = torch.empty(1 << 21, dtype=torch.int32, device=cuda)
+    for _ in range(4 * SLOTS):
+        slot = ring.take()
+        assert slot.copied is None or slot.copied.query()
+        torch.cuda._sleep(20_000_000)
+        dst.copy_(slot.planes[0], non_blocking=True)
+        if slot.copied is None:
+            slot.copied = torch.cuda.Event()
+        slot.copied.record()
+    torch.cuda.synchronize()
+
+
+def test_slot_path_sk_equals_update_path(cuda, monkeypatch, tmp_path):
+    """The same 7.8M-k-mer FASTQ through TorchEngine twice: the reader
+    parsing into its pinned slots (every step a slot step), and the
+    staged `update` path (the engine told to take none). Equal .sk
+    bytes."""
+    from finch_tpu_torch.core import sketching
+    from finch_tpu_torch.models.engine import TorchEngine
+    from finch_tpu_torch.serialization.json_sk import \
+        multisketch_to_json_bytes
+    from finch_tpu_torch.tools.switch_point import cli_params
+    from finch_tpu_torch.utils import get_meter
+
+    fq = _isolate_fastq(tmp_path / "isolate.fq")
+    params, filters = cli_params(fq, 21)
+
+    def sketch(slots: bool):
+        def make(sketch_params, backend, batch_size, device):
+            e = TorchEngine(sketch_params, batch_size=batch_size,
+                            device=device)
+            e.takes_slots = slots
+            return e
+
+        monkeypatch.setattr(sketching, "_make_engine", make)
+        engines = []
+        before = get_meter("engine.step").calls
+        sk = sketching.sketch_stream(fq, fq, params, filters,
+                                     backend="torch", device="cuda",
+                                     engine_out=engines)
+        steps = get_meter("engine.step").calls - before
+        return (multisketch_to_json_bytes([sk]),
+                engines[0].stats.get("slot_steps", 0), steps)
+
+    staged, none, _ = sketch(False)
+    slotted, slot_steps, steps = sketch(True)
+    assert none == 0 and slot_steps == steps >= 4
+    assert slotted == staged
+
+
 # --- the mesh: logical shards on one card ---
 
 @pytest.mark.parametrize("scheme", ["mash", "scaled"])
